@@ -1,0 +1,156 @@
+"""tpuvo_torch matchers vs tpuvo's, including the fused top-2 kernel's plain
+version against the Pallas kernel in interpret mode (CPU), and the CUDA
+kernel against its plain version on the card (tests/test_torch_cuda.py).
+
+Decisions (idx, valid) must agree exactly; distances to 1e-5 absolute
+(fp32 sums of 10 products of O(1) values, summed in another order).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpuvo.ops import match as jm
+from tpuvo.ops.pallas.match_kernel import match_descriptors_pallas
+from tpuvo_torch.ops import match as tm
+from tpuvo_torch.ops.cuda import match_kernel as tk
+
+ATOL = 1e-5
+
+
+def t(x):
+    return torch.as_tensor(np.array(x))
+
+
+def same_decisions(got, ref, check_best=True):
+    v = np.asarray(ref.valid)
+    assert np.array_equal(got.valid.numpy(), v)
+    assert np.array_equal(got.idx.numpy()[v], np.asarray(ref.idx)[v])
+    if check_best:
+        np.testing.assert_allclose(got.best.numpy()[v], np.asarray(ref.best)[v], atol=ATOL)
+
+
+def random_sets(n=64, m=1024, seed=0, invalid=(100, 130)):
+    rng = np.random.default_rng(seed)
+    d1 = rng.uniform(-1, 1, (n, 10)).astype(np.float32)
+    d2 = rng.uniform(-1, 1, (m, 10)).astype(np.float32)
+    tgt = rng.choice(m, n // 2, replace=False)
+    d2[tgt] = d1[: n // 2] + rng.normal(0, 0.02, (n // 2, 10)).astype(np.float32)
+    v1 = np.ones(n, bool)
+    v1[-3:] = False
+    v2 = np.ones(m, bool)
+    v2[invalid[0]:invalid[1]] = False
+    return d1, v1, d2, v2
+
+
+@pytest.mark.parametrize("method", ["direct", "mxu", "mxu_bf16"])
+def test_match_descriptors_methods(method):
+    d1, v1, d2, v2 = random_sets(40, 300, seed=1)
+    ref = jm.match_descriptors(*map(jnp.asarray, (d1, v1, d2, v2)), method=method)
+    got = tm.match_descriptors(*map(t, (d1, v1, d2, v2)), method=method)
+    same_decisions(got, ref)
+    fin = np.isfinite(np.asarray(ref.second))
+    np.testing.assert_allclose(got.second.numpy()[fin], np.asarray(ref.second)[fin], atol=ATOL)
+
+
+def test_top2_first_index_tie():
+    """A duplicate of the best at a later index is the second-best; the
+    first index wins (ratio 1 -> rejected)."""
+    d1 = np.zeros((1, 10), np.float32)
+    d2 = np.zeros((3, 10), np.float32)
+    d2[0] += 0.05
+    d2[1] += 0.01
+    d2[2] += 0.01
+    for method in ("direct", "mxu", "pallas"):
+        got = tm.match_descriptors(t(d1), t(np.ones(1, bool)), t(d2), t(np.ones(3, bool)),
+                                   method=method)
+        assert int(got.idx[0]) == 1 and not bool(got.valid[0])
+        assert float(got.best[0]) == float(got.second[0])
+
+
+def test_match_pair_and_stats():
+    a1, va1, b1, vb1 = random_sets(32, 200, seed=2)
+    a2, va2, b2, vb2 = random_sets(32, 32, seed=3, invalid=(5, 9))
+    args = (a1, va1, b1, vb1, a2, va2, b2, vb2)
+    r1j, r2j = jm.match_descriptors_pair(*map(jnp.asarray, args))
+    r1t, r2t = tm.match_descriptors_pair(*map(t, args))
+    same_decisions(r1t, r1j)
+    same_decisions(r2t, r2j)
+    ids1 = np.arange(32, dtype=np.int32)
+    ids2 = np.random.default_rng(4).integers(0, 40, 200).astype(np.int32)
+    sj = jm.match_stats(r1j, jnp.asarray(ids1), jnp.asarray(va1), jnp.asarray(ids2), jnp.asarray(vb1))
+    st = tm.match_stats(r1t, t(ids1), t(va1), t(ids2), t(vb1))
+    assert [int(x) for x in st] == [int(x) for x in sj]
+
+
+# --- the fused top-2 kernel: plain version vs the Pallas kernel (interpret)
+def run_pallas_pair(d1, v1, d2, v2, tile_m=512):
+    ref = match_descriptors_pallas(*map(jnp.asarray, (d1, v1, d2, v2)), tile_m=tile_m,
+                                   interpret=True)
+    got = tm.match_descriptors(*map(t, (d1, v1, d2, v2)), method="pallas")
+    return ref, got
+
+
+def test_kernel_matches_pallas_random():
+    rng = np.random.default_rng(0)
+    d1 = rng.uniform(-1, 1, (64, 10)).astype(np.float32)
+    d2 = rng.uniform(-1, 1, (1024, 10)).astype(np.float32)
+    d2[5] = d1[3] + 0.01
+    d2[700] = d1[20] + 0.02   # cross-tile best
+    v2 = np.ones(1024, bool)
+    v2[100:130] = False
+    ref, got = run_pallas_pair(d1, np.ones(64, bool), d2, v2)
+    same_decisions(got, ref)
+
+
+def test_kernel_cross_tile_top2():
+    d1 = np.zeros((8, 10), np.float32)
+    d2 = np.ones((1024, 10), np.float32)
+    d2[3] = 0.05
+    d2[900] = 0.06
+    ref, got = run_pallas_pair(d1, np.ones(8, bool), d2, np.ones(1024, bool))
+    assert int(got.idx[0]) == 3
+    np.testing.assert_allclose(float(got.second[0]), float(ref.second[0]), atol=ATOL)
+
+
+def test_kernel_unaligned_sizes():
+    rng = np.random.default_rng(2)
+    d1 = rng.uniform(-1, 1, (50, 10)).astype(np.float32)
+    d2 = rng.uniform(-1, 1, (700, 10)).astype(np.float32)
+    d2[650] = d1[10]
+    ref, got = run_pallas_pair(d1, np.ones(50, bool), d2, np.ones(700, bool))
+    same_decisions(got, ref)
+
+
+def test_kernel_duplicate_descriptors_tie():
+    """Exact duplicates in the map (the fixtures re-triangulate landmarks)
+    sit at exactly the same distance: the first index wins in both, and
+    both reject on the ratio test."""
+    rng = np.random.default_rng(5)
+    d1 = rng.uniform(-1, 1, (16, 10)).astype(np.float32)
+    d2 = rng.uniform(-1, 1, (512, 10)).astype(np.float32)
+    d2[40] = d2[300] = d1[2]
+    d2[41] = d2[42] = d1[3] + 0.01
+    ref, got = run_pallas_pair(d1, np.ones(16, bool), d2, np.ones(512, bool))
+    same_decisions(got, ref)
+    assert int(got.idx[2]) == 40 and int(got.idx[3]) == 41
+    assert not bool(got.valid[2]) and not bool(got.valid[3])
+    assert float(got.best[2]) == 0.0  # identical descriptors: exactly 0
+
+
+def test_kernel_all_invalid_map():
+    d1, v1, d2, _ = random_sets(16, 256, seed=6)
+    ref, got = run_pallas_pair(d1, v1, d2, np.zeros(256, bool))
+    assert not got.valid.any() and not np.asarray(ref.valid).any()
+    r = tk.match_descriptors_cuda(t(d1), t(v1), t(d2), t(np.zeros(256, bool)))
+    assert torch.isinf(r.best).all() and (r.idx == 0).all() and not r.valid.any()
+
+
+def test_wrapper_routes_cpu_to_plain_version():
+    d1, v1, d2, v2 = random_sets(32, 200, seed=7)
+    n0 = tk.launches
+    r = tk.match_descriptors_cuda(*map(t, (d1, v1, d2, v2)))
+    rb, ri, rs = tk.match_topk_reference(*map(t, (d1, v1, d2, v2)))
+    assert tk.launches == n0  # no kernel launch for CPU tensors
+    assert torch.equal(r.idx, ri) and torch.equal(r.best, rb) and torch.equal(r.second, rs)

@@ -1,0 +1,171 @@
+"""tpuvo_torch PICP vs tpuvo's: the plain solver against the XLA solver, and
+the fused kernel's wrapper (its plain version on the CPU) against the Pallas
+kernel in interpret mode — all five cases of tests/test_pallas_picp.py,
+including iteration parity under the early stop.  The CUDA kernel itself is
+held to its plain version on the card (tests/test_torch_cuda.py).
+
+Tolerances follow tests/test_pallas_picp.py: the relative-chi stop is
+knife-edge under another summation order, so iterations may differ by one
+and poses are compared at the converged solution (atol 1e-3 .. 5e-4), inlier
+counts exactly.
+"""
+
+import os
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tpuvo.config import EngineConfig as JEngineConfig, PICPConfig as JPICPConfig
+from tpuvo.ops import picp as jpicp
+from tpuvo.ops.pallas.picp_kernel import solve_pallas
+from tpuvo_torch.config import PICPConfig
+from tpuvo_torch.ops import picp as tpicp
+from tpuvo_torch.ops.cuda import picp_kernel as tk
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+from test_picp import make_problem as _make_problem  # noqa: E402
+
+CFG = JEngineConfig()
+K = CFG.K()
+W, H = CFG.width, CFG.height
+
+
+def make_problem(noise=0.5, pose_err=0.05, seed=0, n=128):
+    pts, obs, T_gt, T0 = _make_problem(n_pts=n, noise=noise, pose_err=pose_err, seed=seed)
+    X = np.zeros((128, 3), np.float32)
+    X[: len(pts)] = pts
+    Z = np.zeros((128, 2), np.float32)
+    Z[: len(obs)] = obs
+    V = np.zeros(128, bool)
+    V[: len(pts)] = True
+    return X, Z, V, T_gt, T0
+
+
+def t(x):
+    return torch.as_tensor(np.array(x))
+
+
+def jax_both(X, Z, V, T0, **cfg):
+    jc = JPICPConfig(**cfg)
+    args = (jnp.asarray(T0), jnp.asarray(X), jnp.asarray(Z), None, jnp.asarray(V), W, H, jc)
+    return (jpicp.solve(jnp.asarray(K), *args),
+            solve_pallas(K, *args, interpret=True))
+
+
+def port_both(X, Z, V, T0, **cfg):
+    tc = PICPConfig(**cfg)
+    args = (t(T0), t(X), t(Z), None, t(V), W, H, tc)
+    return tpicp.solve(t(K), *args), tk.solve_cuda(K, *args)
+
+
+def test_linearize_matches_jax():
+    X, Z, V, _, T0 = make_problem(seed=4)
+    idx = np.arange(128)[::-1].copy()
+    lj = jpicp.linearize(jnp.asarray(K), jnp.asarray(T0), jnp.asarray(X[idx]), jnp.asarray(Z),
+                         jnp.asarray(idx), jnp.asarray(V), W, H, 3000.0)
+    lt = tpicp.linearize(t(K), t(T0), t(X[idx]), t(Z), t(idx), t(V), W, H, 3000.0)
+    # fp32 sums of 128 terms in another order: errors scale with the largest
+    # entry (~1e6-1e7), so entries that cancel to ~0 get atol 1e-5 * max|H|
+    for got, ref in ((lt.H, lj.H), (lt.b, lj.b)):
+        ref = np.asarray(ref)
+        np.testing.assert_allclose(got.numpy(), ref, rtol=1e-4, atol=1e-5 * np.abs(ref).max())
+    assert int(lt.num_inliers) == int(lj.num_inliers)
+    np.testing.assert_allclose(float(lt.chi_inliers), float(lj.chi_inliers), rtol=1e-4)
+
+
+@pytest.mark.parametrize("kernel_thr", [3000.0, 1000.0])
+def test_kernel_matches_xla_solver(kernel_thr):
+    X, Z, V, _, T0 = make_problem()
+    ref, pal = jax_both(X, Z, V, T0, kernel_threshold=kernel_thr)
+    plain, kern = port_both(X, Z, V, T0, kernel_threshold=kernel_thr)
+    for got in (plain, kern):
+        for r in (ref, pal):
+            assert int(got.num_inliers) == int(r.num_inliers)
+            assert bool(got.converged) == bool(r.converged)
+            np.testing.assert_allclose(got.T.numpy(), np.asarray(r.T), atol=5e-3)
+            assert np.isclose(float(got.chi_inliers), float(r.chi_inliers), rtol=5e-2)
+    # the wrapper's CPU path IS the plain solver
+    assert torch.equal(kern.T, plain.T)
+
+
+def test_kernel_with_outliers():
+    X, Z, V, _, T0 = make_problem(noise=0.0, pose_err=0.05, seed=1)
+    rng = np.random.default_rng(1)
+    bad = rng.choice(np.nonzero(V)[0], 20, replace=False)
+    Z2 = Z.copy()
+    Z2[bad] += rng.uniform(100, 250, (20, 2))
+    ref, pal = jax_both(X, Z2, V, T0, kernel_threshold=1000.0)
+    _, kern = port_both(X, Z2, V, T0, kernel_threshold=1000.0)
+    for r in (ref, pal):
+        np.testing.assert_allclose(kern.T.numpy(), np.asarray(r.T), atol=5e-4)
+        assert int(kern.num_inliers) == int(r.num_inliers)
+
+
+def test_kernel_no_valid_points_is_finite():
+    X, Z, V, _, T0 = make_problem()
+    _, kern = port_both(X, Z, np.zeros_like(V), T0)
+    assert torch.isfinite(kern.T).all()
+    assert int(kern.num_inliers) == 0
+
+
+def test_kernel_batches():
+    """A leading batch axis solves each problem independently: batch row b
+    equals the unbatched solve of problem b."""
+    probs = [make_problem(seed=s) for s in range(4)]
+    bX, bZ, bV, _, bT = (np.stack(a) for a in zip(*probs))
+    cfg = PICPConfig(convergence_threshold=1e-4)
+    got = tk.solve_cuda(K, t(bT), t(bX), t(bZ), None, t(bV), W, H, cfg)
+    assert got.T.shape == (4, 4, 4)
+    for b, (X, Z, V, _, T0) in enumerate(probs):
+        single = tk.solve_cuda(K, t(T0), t(X), t(Z), None, t(V), W, H, cfg)
+        np.testing.assert_allclose(got.T[b].numpy(), single.T.numpy(), atol=1e-5)
+        assert int(got.iterations[b]) == int(single.iterations)
+
+
+def test_kernel_iteration_parity_early_stopping():
+    """The regression gate of the dropped principal-point Jacobian terms:
+    with realistic noise and the production rel-chi 1e-4 stop, the port
+    converges in the same number of GN iterations as both JAX solvers (+/-1
+    for reduction-order chi ties) and lands on the same pose."""
+    for seed in range(3):
+        X, Z, V, _, T0 = make_problem(noise=0.5, pose_err=0.05, seed=seed)
+        ref, pal = jax_both(X, Z, V, T0, convergence_threshold=1e-4)
+        plain, kern = port_both(X, Z, V, T0, convergence_threshold=1e-4)
+        assert int(ref.iterations) < 50
+        for got in (plain, kern):
+            for r in (ref, pal):
+                assert abs(int(got.iterations) - int(r.iterations)) <= 1, seed
+                np.testing.assert_allclose(got.T.numpy(), np.asarray(r.T), atol=1e-3)
+
+
+def test_corr_idx_gather_and_unrolled_variants():
+    """Correspondence indexing into a larger map, the unrolled and the
+    fixed-round drivers, and the annealed threshold, against JAX."""
+    X, Z, V, _, T0 = make_problem(seed=5)
+    rng = np.random.default_rng(5)
+    world = rng.normal(0, 5, (300, 3)).astype(np.float32)
+    idx = rng.choice(300, 128, replace=False)
+    world[idx] = X
+    for fn, kw, cfg in (("solve", {}, dict(convergence_threshold=1e-4)),
+                        ("solve_unrolled", dict(rounds=8), {}),
+                        ("solve_fixed_rounds", dict(rounds=4), {}),
+                        ("solve", {}, dict(annealed_kernel=True, kernel_threshold=500.0))):
+        rj = getattr(jpicp, fn)(jnp.asarray(K), jnp.asarray(T0), jnp.asarray(world), jnp.asarray(Z),
+                                jnp.asarray(idx), jnp.asarray(V), W, H, JPICPConfig(**cfg), **kw)
+        rt = getattr(tpicp, fn)(t(K), t(T0), t(world), t(Z), t(idx), t(V), W, H,
+                                PICPConfig(**cfg), **kw)
+        np.testing.assert_allclose(rt.T.numpy(), np.asarray(rj.T), atol=1e-3)
+        assert abs(int(rt.iterations) - int(rj.iterations)) <= 1, fn
+        assert int(rt.num_inliers) == int(rj.num_inliers), fn
+
+
+def test_wrapper_rejects_annealing_on_cuda_only():
+    """The kernel has no annealing schedule; the CPU path (plain solver) does."""
+    X, Z, V, _, T0 = make_problem()
+    cfg = PICPConfig(annealed_kernel=True)
+    n0 = tk.launches
+    res = tk.solve_cuda(K, t(T0), t(X), t(Z), None, t(V), W, H, cfg)
+    assert torch.isfinite(res.T).all() and tk.launches == n0

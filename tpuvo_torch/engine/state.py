@@ -1,0 +1,84 @@
+"""VO state: a NamedTuple of fixed-capacity tensors (twin of
+``tpuvo/engine/state.py``), plus converters to and from the numpy form
+of either package's state — they let both packages step from one state.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from tpuvo_torch.config import EngineConfig
+
+
+class VOState(NamedTuple):
+    pose: torch.Tensor         # (4, 4) camera-in-world pose of the latest frame
+    map_xyz: torch.Tensor      # (C, 3) landmark positions (world = camera-0 frame)
+    map_desc: torch.Tensor     # (C, D) landmark appearance descriptors
+    map_id_real: torch.Tensor  # (C,) int32 GT landmark id oracle (from first view)
+    map_id_meas: torch.Tensor  # (C,) int32 measurement id of the first view
+    map_valid: torch.Tensor    # (C,) bool slot occupancy
+    map_count: torch.Tensor    # () int32 occupied slots
+    vel: torch.Tensor          # (4, 4) last relative motion (constant-velocity init)
+    map_last_seen: torch.Tensor  # (C,) int32 frame of the last 2D-3D match
+    frame_idx: torch.Tensor    # () int32 frames tracked so far (0 after bootstrap)
+
+
+_DTYPES = {
+    "pose": torch.float32, "map_xyz": torch.float32, "map_desc": torch.float32,
+    "map_id_real": torch.int32, "map_id_meas": torch.int32, "map_valid": torch.bool,
+    "map_count": torch.int32, "vel": torch.float32, "map_last_seen": torch.int32,
+    "frame_idx": torch.int32,
+}
+
+
+def empty_state(cfg: EngineConfig, device="cpu") -> VOState:
+    C, D = cfg.map_capacity, cfg.desc_dim
+    kw = dict(device=device)
+    return VOState(
+        pose=torch.eye(4, dtype=torch.float32, **kw),
+        vel=torch.eye(4, dtype=torch.float32, **kw),
+        map_xyz=torch.zeros((C, 3), dtype=torch.float32, **kw),
+        map_desc=torch.zeros((C, D), dtype=torch.float32, **kw),
+        map_id_real=torch.full((C,), -1, dtype=torch.int32, **kw),
+        map_id_meas=torch.full((C,), -1, dtype=torch.int32, **kw),
+        map_valid=torch.zeros((C,), dtype=torch.bool, **kw),
+        map_count=torch.zeros((), dtype=torch.int32, **kw),
+        map_last_seen=torch.zeros((C,), dtype=torch.int32, **kw),
+        frame_idx=torch.zeros((), dtype=torch.int32, **kw),
+    )
+
+
+def state_from_numpy(fields, device="cpu") -> VOState:
+    """VOState from numpy arrays keyed by field name (a mapping, or any
+    object with those attributes — e.g. the JAX package's VOState after
+    ``np.asarray`` per field)."""
+    get = fields.__getitem__ if isinstance(fields, dict) else (lambda k: getattr(fields, k))
+    return VOState(**{
+        k: torch.as_tensor(np.array(get(k)), dtype=_DTYPES[k], device=device)
+        for k in VOState._fields
+    })
+
+
+def state_to_numpy(state: VOState) -> dict:
+    """Field name -> numpy array (host copy)."""
+    return {k: getattr(state, k).detach().cpu().numpy() for k in VOState._fields}
+
+
+class FrameLog(NamedTuple):
+    """Per-frame diagnostics (the reference's stdout narration, structured)."""
+
+    pose: torch.Tensor           # (4, 4) camera-in-world after tracking
+    num_inliers: torch.Tensor    # PICP inliers
+    chi_inliers: torch.Tensor
+    iterations: torch.Tensor
+    converged: torch.Tensor
+    n_map_matches: torch.Tensor  # 2D-3D matches
+    n_map_correct: torch.Tensor  # ... of which GT-correct (id_real oracle)
+    n_frame_matches: torch.Tensor  # 2D-2D matches
+    n_new_points: torch.Tensor   # landmarks triangulated this frame
+    map_count: torch.Tensor
+    n_dropped_candidates: torch.Tensor  # candidates beyond the per-frame cap
+    n_dropped_overflow: torch.Tensor    # appends beyond map capacity

@@ -1,0 +1,99 @@
+"""Build and load the port's CUDA kernels (``tpuvo_torch/csrc/*.cu``).
+
+At first use every source is compiled by ``nvcc`` for Hopper (``sm_90a``)
+into one shared library with a plain C interface, loaded with ``ctypes``.
+The library lives in ``build/tpuvo_torch/`` at the repository root, named by
+a hash of the sources and flags, so an edited source rebuilds and an
+unchanged one loads the cached build.  Nothing is compiled at import time.
+
+No ``--use_fast_math``: the PICP relative-chi stop is knife-edge, and
+approximate sin/cos/sqrt/division would move GN iteration counts.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+SRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "tpuvo_torch"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    # world, idx, uv, valid, T0, T_out, stats, B, N, M, fx, fy, cx, cy,
+    # width, height, thr, damping, conv, max_it, min_inl, keep_outliers, stream
+    "tpuvo_picp_solve": [_P] * 7 + [_I] * 3 + [_F] * 9 + [_I] * 3 + [_P],
+    # d1, v1, d2, v2, best, idx, second, accept, N, M, D, dist_thr, ratio_thr, stream
+    "tpuvo_match_top2": [_P] * 8 + [_I] * 3 + [_F] * 2 + [_P],
+}
+
+_lib = None
+build_seconds = None   # wall time of the compile in this process (None: cached)
+build_log = ""         # nvcc's output (register / shared-memory report)
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit "
+                       "(set CUDA_HOME or put nvcc on PATH)")
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, compiling it first if needed."""
+    global _lib, build_seconds, build_log
+    if _lib is not None:
+        return _lib
+    sources = sorted(SRC_DIR.glob("*.cu"))
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources:
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    out = BUILD_DIR / f"libtpuvo_torch_{h.hexdigest()[:16]}.so"
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        t0 = time.perf_counter()
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
+                              capture_output=True, text=True)
+        build_log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{build_log}")
+        os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
+        build_seconds = time.perf_counter() - t0
+    lib = ctypes.CDLL(str(out))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    _lib = lib
+    return lib
+
+
+def check(err: int, name: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a launch."""
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {err}")
+
+
+def check_device(*tensors) -> None:
+    """Every kernel argument must be a contiguous tensor on the current device."""
+    import torch
+
+    dev = torch.cuda.current_device()
+    for t in tensors:
+        if t is None:
+            continue
+        if not t.is_cuda or t.device.index != dev:
+            raise ValueError(f"kernel argument on {t.device}, expected cuda:{dev}")
+        if not t.is_contiguous():
+            raise ValueError("kernel argument must be contiguous")
