@@ -8,7 +8,9 @@ there on its own:
 
 Tolerances: the kernels sum in another order than the plain versions —
 PICP poses atol 1e-4 and iterations +/-1 (knife-edge relative-chi stop),
-match decisions exact and distances atol 1e-5.
+match decisions exact and distances atol 1e-5.  The SLAM backend on the
+card against the CPU (``index_add_`` sums in no fixed order there): BA
+poses atol 1e-4, points atol 1e-2; slam_step window poses atol 1e-3.
 """
 
 import numpy as np
@@ -109,6 +111,108 @@ def test_match_kernel_matches_plain(dev, m):
     assert int(got.idx[-1]) == 3 and float(got.best[-1]) == 0.0
     none = match_kernel.match_descriptors_cuda(d1, v1, d2, torch.zeros_like(v2))
     assert not none.valid.any() and torch.isinf(none.best).all()
+
+
+def ba_window_problem(seed=3, W=8, L=400):
+    """A noisy window with perturbed poses 2.. and points (test_ba's shape)."""
+    from tpuvo_torch.ba.window import BAProblem
+
+    rng = np.random.default_rng(seed)
+    world = synthetic.make_world(seed, n_landmarks=L, xy_extent=6.0)
+    gt = synthetic.make_planar_trajectory(W, step=0.25, turn=0.05, seed=seed)
+    seq = synthetic.render_sequence(world, gt, CFG, pixel_noise=0.3, seed=seed)
+    poses = np.stack([np.linalg.inv(synthetic.camera_pose_from_gt(g, CFG)) for g in gt])
+    xi = torch.as_tensor(0.02 * rng.standard_normal((W, 6)).astype(np.float32))
+    xi[:2] = 0.0
+    poses = lie.se3_exp(xi) @ torch.as_tensor(poses.astype(np.float32))
+    points = world.xyz + 0.03 * rng.standard_normal(world.xyz.shape)
+    return BAProblem(poses, torch.as_tensor(points.astype(np.float32)),
+                     torch.as_tensor(seq.uv[:W]),
+                     torch.as_tensor(np.where(seq.valid, seq.id_real, 0)[:W].astype(np.int64)),
+                     torch.as_tensor(seq.valid[:W]), torch.ones(L, dtype=torch.bool),
+                     torch.arange(W) < 2)
+
+
+def test_ba_solve_on_card_matches_cpu(dev):
+    """ba_solve (compacted and capped, LM and fixed damping) on the card vs
+    the CPU.  index_add_ sums in no fixed order on the card: poses atol
+    1e-4, points atol 1e-2; the integer stats exact."""
+    from tpuvo_torch.ba.window import ba_solve
+    from tpuvo_torch.config import BAConfig
+
+    p = ba_window_problem()
+    pg = type(p)(*(x.to(dev) for x in p))
+    for cfg in (BAConfig(iterations=8), BAConfig(iterations=6, compact_cap=64),
+                BAConfig(iterations=4, lm_adaptive=False)):
+        ref, sr = ba_solve(p, torch.as_tensor(K), 640, 480, cfg)
+        got, sg = ba_solve(pg, torch.as_tensor(K, device=dev), 640, 480, cfg)
+        torch.testing.assert_close(got.poses.cpu(), ref.poses, atol=1e-4, rtol=0)
+        torch.testing.assert_close(got.points.cpu(), ref.points, atol=1e-2, rtol=0)
+        assert int(sg.num_obs) == int(sr.num_obs)
+
+
+def test_slam_step_on_card_matches_cpu(dev):
+    """Teacher forcing: each CPU SLAM carry stepped on the card through both
+    kernels matches the CPU step, local BA included (W=6 window)."""
+    from tpuvo_torch.engine import slam
+
+    cfg = EngineConfig(mode="fixed", map_capacity=1024, fuse_frame_matchers=True,
+                       local_ba_window=6, local_ba_iterations=4,
+                       matcher=MatcherConfig(method="pallas"),
+                       picp=PICPConfig(backend="pallas", convergence_threshold=1e-4))
+    gt = synthetic.make_loop_trajectory(200, step=1.0, seed=7)[:16]
+    world = synthetic.make_world(7, n_landmarks=4000, xy_extent=float(np.abs(gt[:, :2]).max()) + 15,
+                                 z_range=(0.0, 8.0))
+    seq = synthetic.render_sequence(world, gt, cfg, pixel_noise=0.3, seed=7)
+    F = seq.uv.shape[0]
+    fr, frg = vo.frames_of(seq, 0, F), vo.frames_of(seq, 0, F, dev)
+    state, _ = vo.bootstrap(vo.make_generator(42), vo.frame_at(fr, 0), vo.frame_at(fr, 1), cfg)
+    carry = slam.init_carry(state, F, fr.uv.shape[1], cfg)
+    n0 = picp_kernel.launches
+    for i in range(F - 1):
+        c2, lg = slam.slam_step(carry, vo.frame_at(fr, i), vo.frame_at(fr, i + 1), cfg)
+        g2, lgg = slam.slam_step(slam.carry_to(carry, dev), vo.frame_at(frg, i),
+                                 vo.frame_at(frg, i + 1), cfg)
+        torch.testing.assert_close(lgg.pose.cpu(), lg.pose, atol=1e-4, rtol=0)
+        torch.testing.assert_close(g2.poses_all.cpu(), c2.poses_all, atol=1e-3, rtol=0)
+        assert torch.equal(g2.buf_valid.cpu(), c2.buf_valid)
+        assert int(lgg.n_map_matches) == int(lg.n_map_matches)
+        assert g2.n_ba == c2.n_ba
+        carry = c2
+    assert carry.n_ba > 3 and picp_kernel.launches == n0 + F - 1
+
+
+def test_topology_one_launch_matches_per_frame(dev):
+    """_global_topology sends all F frames to the top-2 kernel as one
+    (F·N)-row launch; each row matches its per-frame call, and the launch
+    matches the plain version on the same (F·N)-row input (decisions
+    exact)."""
+    from tpuvo_torch.engine.ba_refine import _global_topology
+    from tpuvo_torch.ops.match import accept_matches
+
+    cfg = EngineConfig(matcher=MatcherConfig(method="pallas"))
+    rng = np.random.default_rng(0)
+    F, N, M = 12, 128, 8192
+    map_desc = rng.uniform(-1, 1, (M, 10)).astype(np.float32)
+    desc = rng.uniform(-1, 1, (F, N, 10)).astype(np.float32)
+    hit = rng.random((F, N)) < 0.5
+    desc[hit] = map_desc[rng.integers(0, M, hit.sum())] + rng.normal(0, 0.02, (hit.sum(), 10))
+    args = [torch.as_tensor(a, device=dev) for a in
+            (map_desc, rng.random(M) < 0.95, desc, rng.random((F, N)) < 0.9)]
+    n0 = match_kernel.launches
+    lm, valid = _global_topology(*args, cfg)
+    assert match_kernel.launches == n0 + 1
+    for f in range(F):
+        r = match_kernel.match_descriptors_cuda(args[2][f], args[3][f], args[0], args[1])
+        assert torch.equal(valid[f], r.valid)
+        assert torch.equal(lm[f][r.valid], r.idx[r.valid])
+    assert int(valid.sum()) > F * N // 4
+    d1, v1 = args[2].reshape(F * N, 10), args[3].reshape(F * N)
+    best, idx, second = match_kernel.match_topk_reference(d1, v1, args[0], args[1])
+    mc = cfg.matcher
+    want = accept_matches(best, second, v1, mc.distance_threshold, mc.ratio_threshold)
+    assert torch.equal(valid.reshape(-1), want)
+    assert torch.equal(lm.reshape(-1)[want], idx[want])
 
 
 def test_track_step_on_card_matches_cpu(dev):

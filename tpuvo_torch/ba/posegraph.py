@@ -1,0 +1,202 @@
+"""Pose-graph optimization: Gauss-Newton on SE(3) over relative-pose edges
+(twin of ``tpuvo/ba/posegraph.py``).
+
+  * state: F camera-in-world poses T_i (4x4)
+  * edge (i, j) with measured relative pose Z_ij and weight w:
+        r_ij = log_se3(Z_ij^-1 · T_i^-1 · T_j)   in R^6
+  * GN over left perturbations T_k <- exp(xi_k)·T_k; the 6x6 edge
+    Jacobians are exact: ``torch.func.jacfwd`` of the residual, under
+    ``torch.func.vmap`` over the edges (the JAX twin's ``jax.jacfwd``)
+  * gauge: ``fixed`` poses (pose 0 at least); robust kernel: the
+    saturating sqrt(thr/chi) weight of PICP, per edge on chi = rᵀr
+
+H is assembled with ``index_add_`` into (F, F) 6x6 blocks and solved with
+one damped Cholesky of the (6F, 6F) system.  The LM loop carries every
+value through ``torch.where``, so a solve makes no host round-trip.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from tpuvo_torch.engine.state import tuple_from_numpy, tuple_to_numpy
+from tpuvo_torch.ops import lie
+from tpuvo_torch.ops.linalg_small import cholesky_solve_nan
+
+
+class PoseGraph(NamedTuple):
+    """Fixed-shape pose-graph problem.
+
+    poses:    (F, 4, 4) camera-in-world estimates
+    edges_ij: (E, 2) node indices (i, j)
+    edges_T:  (E, 4, 4) measured relative poses Z_ij = T_i^-1 T_j
+    edges_w:  (E,) float32 weights (0 disables an edge — padding)
+    fixed:    (F,) bool — poses held fixed
+    """
+
+    poses: torch.Tensor
+    edges_ij: torch.Tensor
+    edges_T: torch.Tensor
+    edges_w: torch.Tensor
+    fixed: torch.Tensor
+
+
+class PGOStats(NamedTuple):
+    chi: torch.Tensor         # robust total chi (sum w·min(rᵀr, thr))
+    num_inliers: torch.Tensor
+    iterations: torch.Tensor
+
+
+_GRAPH_DTYPES = {"poses": torch.float32, "edges_ij": torch.int64,
+                 "edges_T": torch.float32, "edges_w": torch.float32, "fixed": torch.bool}
+
+
+def graph_from_numpy(fields, device="cpu") -> PoseGraph:
+    """PoseGraph from numpy arrays keyed by field name (a mapping, or an
+    object with those attributes — e.g. the JAX package's PoseGraph)."""
+    return tuple_from_numpy(PoseGraph, _GRAPH_DTYPES, fields, device)
+
+
+def graph_to_numpy(graph: PoseGraph) -> dict:
+    return tuple_to_numpy(graph)
+
+
+def edge_residual(T_i, T_j, Z_ij):
+    """r = log_se3(Z^-1 · T_i^-1 · T_j), batched — zero iff satisfied."""
+    return lie.se3_log(lie.inv_se3(Z_ij) @ lie.inv_se3(T_i) @ T_j)
+
+
+def _perturbed_residual(xi, T_i, T_j, Z_ij):
+    # evaluated with a leading axis of 1: torch.func.jacfwd gives a float64
+    # tangent to a 0-d tensor plus a Python float (theta2 + 1e-32 in the
+    # se3 chart), which then fails in the next float32 op
+    xi, T_i, T_j, Z_ij = xi[None], T_i[None], T_j[None], Z_ij[None]
+    return edge_residual(lie.se3_exp(xi[:, :6]) @ T_i, lie.se3_exp(xi[:, 6:]) @ T_j, Z_ij)[0]
+
+
+def _edge_lin(T_i, T_j, Z_ij):
+    """Residuals (E, 6) + exact Jacobians (E, 6, 6) wrt left perturbations
+    of T_i and T_j.  Finite on a satisfied edge: so3_log's atan2 form has a
+    finite derivative at theta = 0."""
+    r = edge_residual(T_i, T_j, Z_ij)
+    xi0 = torch.zeros(T_i.shape[:-2] + (12,), dtype=T_i.dtype, device=T_i.device)
+    J = torch.func.vmap(torch.func.jacfwd(_perturbed_residual))(xi0, T_i, T_j, Z_ij)
+    return r, J[..., :6], J[..., 6:]
+
+
+def linearize_pgo(graph: PoseGraph, kernel_threshold: float):
+    """All-edge linearization -> (H (F, F, 6, 6), b (F, 6), robust chi,
+    inlier count)."""
+    F = graph.poses.shape[0]
+    ii = graph.edges_ij[:, 0].long()
+    jj = graph.edges_ij[:, 1].long()
+    r, Ji, Jj = _edge_lin(graph.poses[ii], graph.poses[jj], graph.edges_T)
+
+    chi = torch.sum(r * r, -1)
+    active = graph.edges_w > 0
+    lam = torch.where(chi <= kernel_threshold, 1.0,
+                      torch.sqrt(kernel_threshold / torch.clamp(chi, min=1e-20)))
+    w = graph.edges_w * lam * active
+
+    Hii = torch.einsum("eki,ekj,e->eij", Ji, Ji, w)
+    Hjj = torch.einsum("eki,ekj,e->eij", Jj, Jj, w)
+    Hij = torch.einsum("eki,ekj,e->eij", Ji, Jj, w)
+    bi = torch.einsum("eki,ek,e->ei", Ji, r, w)
+    bj = torch.einsum("eki,ek,e->ei", Jj, r, w)
+
+    z = lambda *s: torch.zeros(s, dtype=r.dtype, device=r.device)
+    H = (z(F * F, 6, 6).index_add_(0, ii * F + ii, Hii).index_add_(0, jj * F + jj, Hjj)
+         .index_add_(0, ii * F + jj, Hij).index_add_(0, jj * F + ii, Hij.mT)).reshape(F, F, 6, 6)
+    b = z(F, 6).index_add_(0, ii, bi).index_add_(0, jj, bj)
+
+    chi_rob = torch.sum(torch.where(active, torch.clamp(chi, max=kernel_threshold), 0.0))
+    n_inl = torch.sum(active & (chi <= kernel_threshold)).to(torch.int32)
+    return H, b, chi_rob, n_inl
+
+
+def _solve_system(H, b, fixed, damping):
+    """Damped gauge-fixed solve of the (6F, 6F) block system; NaN (never an
+    exception) when the system is not positive definite."""
+    F = H.shape[0]
+    S = H.permute(0, 2, 1, 3).reshape(F * 6, F * 6)
+    free = torch.repeat_interleave(~fixed, 6).to(S.dtype)
+    S = S * free[:, None] * free[None, :]
+    S = S + torch.diag(damping * free + (1.0 - free))
+    return cholesky_solve_nan(S, -b.reshape(F * 6) * free).reshape(F, 6)
+
+
+def pgo_eval_chi(poses, graph: PoseGraph, kernel_threshold: float):
+    """Truncated robust objective at given poses (the LM accept test)."""
+    ii = graph.edges_ij[:, 0].long()
+    jj = graph.edges_ij[:, 1].long()
+    r = edge_residual(poses[ii], poses[jj], graph.edges_T)
+    chi = torch.sum(r * r, -1)
+    return torch.sum(torch.where(graph.edges_w > 0,
+                                 graph.edges_w * torch.clamp(chi, max=kernel_threshold), 0.0))
+
+
+def pgo_solve(graph: PoseGraph, iterations: int = 20, kernel_threshold: float = 1.0,
+              damping: float = 1e-6, damping_init: float = 1e-3):
+    """Adaptive-LM pose-graph solve: one trial step per iteration; a
+    rejected or non-finite step rolls back with lambda x4, an accepted one
+    relaxes x0.5 toward ``damping``.  ``accept`` is a tensor and every
+    carried value goes through ``torch.where`` (no host sync).  Returns
+    (optimized PoseGraph, PGOStats)."""
+    dev = graph.poses.device
+    poses = graph.poses
+    chi_prev = pgo_eval_chi(poses, graph, kernel_threshold)
+    lam = torch.full((), damping_init, dtype=torch.float32, device=dev)
+    n_inl = torch.zeros((), dtype=torch.int32, device=dev)
+    for _ in range(iterations):
+        H, b, _, n_inl = linearize_pgo(graph._replace(poses=poses), kernel_threshold)
+        dx = _solve_system(H, b, graph.fixed, lam)
+        new_poses = lie.se3_exp(dx) @ poses
+        new_poses = torch.where(graph.fixed[:, None, None], poses, new_poses)
+        chi_new = pgo_eval_chi(new_poses, graph, kernel_threshold)
+        accept = (torch.isfinite(chi_new) & torch.isfinite(new_poses).all()
+                  & (chi_new <= chi_prev))
+        poses = torch.where(accept, new_poses, poses)
+        lam = torch.where(accept, torch.clamp(lam * 0.5, min=damping),
+                          torch.clamp(lam * 4.0, max=1e8))
+        chi_prev = torch.where(accept, chi_new, chi_prev)
+    return graph._replace(poses=poses), PGOStats(
+        chi_prev, n_inl, torch.full((), iterations, dtype=torch.int32, device=dev))
+
+
+# ---------------------------------------------------------------------------
+# Graph construction from a VO run
+# ---------------------------------------------------------------------------
+def odometry_edges(poses, weight: float = 1.0):
+    """Sequential (i, i+1) edges of a camera-in-world trajectory (F, 4, 4).
+    Returns (edges_ij, edges_T, edges_w)."""
+    F = poses.shape[0]
+    ii = torch.arange(F - 1, device=poses.device)
+    edges_T = lie.inv_se3(poses[:-1]) @ poses[1:]
+    return (torch.stack([ii, ii + 1], -1), edges_T,
+            torch.full((F - 1,), weight, dtype=torch.float32, device=poses.device))
+
+
+def window_edges(poses_refined, window: int, step: int, weight: float = 1.0, skip: int = 2):
+    """Relative-pose constraints (lo, lo+k), k in [skip, window), for each
+    window [lo, lo+window) of a windowed-BA trajectory: window-local
+    relative poses are accurate even where the window's anchor drifted."""
+    F = poses_refined.shape[0]
+    pairs = [(lo, lo + k) for lo in range(0, F - window + 1, step)
+             for k in range(skip, window)]
+    eij = torch.as_tensor(pairs, dtype=torch.int64, device=poses_refined.device)
+    eT = lie.inv_se3(poses_refined[eij[:, 0]]) @ poses_refined[eij[:, 1]]
+    return eij, eT, torch.full((len(pairs),), weight, dtype=torch.float32,
+                               device=poses_refined.device)
+
+
+def build_graph(poses, extra_edges=None, odo_weight: float = 1.0) -> PoseGraph:
+    """Odometry backbone + optional extra (e.g. loop-closure) edge sets, a
+    list of (edges_ij, edges_T, edges_w) triples; pose 0 fixed."""
+    poses = torch.as_tensor(poses, dtype=torch.float32)
+    sets = [odometry_edges(poses, odo_weight)] + list(extra_edges or [])
+    F = poses.shape[0]
+    return PoseGraph(poses, torch.cat([s[0].long() for s in sets], 0),
+                     torch.cat([s[1] for s in sets], 0), torch.cat([s[2] for s in sets], 0),
+                     torch.arange(F, device=poses.device) == 0)

@@ -51,20 +51,28 @@ def empty_state(cfg: EngineConfig, device="cpu") -> VOState:
     )
 
 
-def state_from_numpy(fields, device="cpu") -> VOState:
-    """VOState from numpy arrays keyed by field name (a mapping, or any
-    object with those attributes — e.g. the JAX package's VOState after
-    ``np.asarray`` per field)."""
+def tuple_from_numpy(cls, dtypes: dict, fields, device="cpu"):
+    """A NamedTuple ``cls`` of tensors from arrays keyed by field name (a
+    mapping, or any object with those attributes — e.g. the JAX package's
+    twin of ``cls``); ``dtypes`` maps each field to its tensor dtype."""
     get = fields.__getitem__ if isinstance(fields, dict) else (lambda k: getattr(fields, k))
-    return VOState(**{
-        k: torch.as_tensor(np.array(get(k)), dtype=_DTYPES[k], device=device)
-        for k in VOState._fields
-    })
+    return cls(**{k: torch.as_tensor(np.array(get(k)), dtype=dtypes[k], device=device)
+                  for k in cls._fields})
+
+
+def tuple_to_numpy(tup) -> dict:
+    """Field name -> numpy array (host copy) of a NamedTuple of tensors."""
+    return {k: getattr(tup, k).detach().cpu().numpy() for k in tup._fields}
+
+
+def state_from_numpy(fields, device="cpu") -> VOState:
+    """VOState from numpy arrays keyed by field name (see tuple_from_numpy)."""
+    return tuple_from_numpy(VOState, _DTYPES, fields, device)
 
 
 def state_to_numpy(state: VOState) -> dict:
     """Field name -> numpy array (host copy)."""
-    return {k: getattr(state, k).detach().cpu().numpy() for k in VOState._fields}
+    return tuple_to_numpy(state)
 
 
 class FrameLog(NamedTuple):

@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (``tpuvo_torch/csrc/*.cu``).
 
-At first use every source is compiled by ``nvcc`` for Hopper (``sm_90a``)
-into one shared library with a plain C interface, loaded with ``ctypes``.
+At first use every source is compiled by its own ``nvcc`` for Hopper
+(``sm_90a``), all started together, and the objects are linked into one
+shared library with a plain C interface, loaded with ``ctypes``.
 The library lives in ``build/tpuvo_torch/`` at the repository root, named by
 a hash of the sources and flags, so an edited source rebuilds and an
 unchanged one loads the cached build.  Nothing is compiled at import time.
@@ -23,7 +24,7 @@ from pathlib import Path
 SRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "tpuvo_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
@@ -62,12 +63,21 @@ def library() -> ctypes.CDLL:
     if not out.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        objs = [out.with_name(f"{src.stem}.{os.getpid()}.o") for src in sources]
         t0 = time.perf_counter()
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, sources)],
+        nvcc = _nvcc()
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for src, obj in zip(sources, objs)]
+        logs = [p.communicate()[0] for p in procs]  # waits for every compile
+        link = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
                               capture_output=True, text=True)
-        build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n{build_log}")
+        build_log = "".join(logs) + link.stdout + link.stderr
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        codes = [p.returncode for p in procs] + [link.returncode]
+        if any(codes):
+            raise RuntimeError(f"nvcc failed (exits {codes}):\n{build_log}")
         os.replace(tmp, out)  # atomic: a concurrent loader sees all or nothing
         build_seconds = time.perf_counter() - t0
     lib = ctypes.CDLL(str(out))

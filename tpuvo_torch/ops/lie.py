@@ -1,8 +1,9 @@
 """SE(3)/SO(3) charts and similarity alignment on tensors.
 
 Twin of ``tpuvo/ops/lie.py``: ``v2t_euler`` (R = Rx(w0)·Ry(w1)·Rz(w2), the
-reference's left-multiplicative GN update), the planar lift
-``augment_pose``, and ``umeyama`` Sim(3) alignment.  Transforms are 4x4
+reference's left-multiplicative GN update), the ``se3_exp``/``se3_log``
+chart of the BA and pose-graph solvers, the planar lift ``augment_pose``,
+and ``umeyama`` Sim(3) alignment.  Transforms are 4x4
 homogeneous float32 tensors; every function broadcasts over leading dims.
 """
 
@@ -86,6 +87,41 @@ def so3_log(R):
     theta = torch.atan2(sin_t, cos_t)
     scale = torch.where(s2 > 1e-12, theta / (2.0 * sin_t), 0.5 + theta * theta / 12.0)
     return v * scale[..., None]
+
+
+def se3_exp(xi):
+    """SE(3) exponential of twists (..., 6) = (v, w): the BA and pose-graph
+    retraction."""
+    v, w = xi[..., :3], xi[..., 3:6]
+    theta2 = torch.sum(w * w, -1)
+    theta = torch.sqrt(theta2 + 1e-32)
+    W = skew(w)
+    W2 = W @ W
+    big = theta2 > 1e-12
+    b = torch.where(big, (1.0 - torch.cos(theta)) / theta2, 0.5 - theta2 / 24.0)
+    c = torch.where(big, (theta - torch.sin(theta)) / (theta2 * theta), 1.0 / 6.0)
+    eye = torch.eye(3, dtype=xi.dtype, device=xi.device)
+    V = eye + b[..., None, None] * W + c[..., None, None] * W2
+    return rt_to_T(so3_exp(w), torch.einsum("...ij,...j->...i", V, v))
+
+
+def se3_log(T):
+    """SE(3) logarithm (..., 4, 4) -> twists (..., 6) with
+    se3_exp(se3_log(T)) = T: V^-1 = I - W/2 + coef·W² applied to t."""
+    w = so3_log(T[..., :3, :3])
+    theta2 = torch.sum(w * w, -1)
+    theta = torch.sqrt(theta2 + 1e-32)
+    W = skew(w)
+    W2 = W @ W
+    half = 0.5 * theta
+    cot_term = torch.where(
+        theta2 > 1e-12,
+        (1.0 - half * torch.cos(half) / torch.clamp(torch.sin(half), min=1e-20)) / theta2,
+        1.0 / 12.0 + theta2 / 720.0,
+    )
+    eye = torch.eye(3, dtype=T.dtype, device=T.device)
+    Vinv = eye - 0.5 * W + cot_term[..., None, None] * W2
+    return torch.cat([torch.einsum("...ij,...j->...i", Vinv, T[..., :3, 3]), w], -1)
 
 
 def scale_motion(T, alpha):

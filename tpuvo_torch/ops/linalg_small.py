@@ -3,6 +3,8 @@
 for the PICP normal equations, inverse iteration for the RANSAC
 hypotheses, and the inhomogeneous two-view DLT.  Branch-free elementwise
 arithmetic, batched over leading dims, so no call needs a host round-trip.
+``cholesky_solve_nan`` is the sync-free dense SPD solve of the BA and
+pose-graph systems.
 """
 
 from __future__ import annotations
@@ -80,6 +82,22 @@ def cholesky_solve_unrolled(H, b, n: int):
 def cholesky_solve6(H, b):
     """Unrolled 6x6 SPD solve (PICP normal equations)."""
     return cholesky_solve_unrolled(H, b, 6)
+
+
+def cholesky_solve_nan(S, rhs):
+    """x = S^-1 rhs for SPD (n, n) S through a Cholesky factor; a matrix
+    that is not positive definite yields NaN, never an exception.
+
+    ``jax.scipy.linalg.cho_factor`` returns NaN on a non-PD matrix, and the
+    BA and pose-graph LM loops rely on it: the non-finite step is rejected
+    and lambda grows x4.  ``torch.linalg.cholesky`` raises instead, and on
+    the card its error check syncs.  ``cholesky_ex`` returns ``info``
+    without a check; a nonzero info poisons the factor with NaN.  The
+    triangular solves are cuBLAS trsm calls, which do not sync either."""
+    Lc, info = torch.linalg.cholesky_ex(S)
+    Lc = torch.where(info[..., None, None] == 0, Lc, float("nan"))
+    y = torch.linalg.solve_triangular(Lc, rhs[..., None], upper=False)
+    return torch.linalg.solve_triangular(Lc.mT, y, upper=True)[..., 0]
 
 
 def smallest_eigvec_inverse_iteration(A, iterations: int = 8, shift: float = 1e-6):
