@@ -154,3 +154,37 @@ def test_wrapper_routes_cpu_to_plain_version():
     rb, ri, rs = tk.match_topk_reference(*map(t, (d1, v1, d2, v2)))
     assert tk.launches == n0  # no kernel launch for CPU tensors
     assert torch.equal(r.idx, ri) and torch.equal(r.best, rb) and torch.equal(r.second, rs)
+
+
+@pytest.mark.parametrize("N,M,D,plan", [
+    (128, 8192, 10, (16, 1, 8)),     # the tracker's map match: 8 x 8 = 64 blocks
+    (128, 8191, 10, (16, 1, 8)),
+    (128, 512, 10, (16, 1, 4)),      # a small map: each split holds one 128-row tile
+    (300, 8192, 10, (32, 1, 8)),     # N not a multiple of the query tile
+    (25600, 8192, 10, (256, 4, 8)),  # the refiner's topology: 100 x 8 = 800 blocks
+    (25600, 8192, 32, (128, 1, 4)),  # other widths: one query a thread, 32-row tiles
+    (128, 8192, 32, (16, 1, 8)),
+    (5, 40, 10, (8, 1, 1)),
+])
+def test_launch_plan(N, M, D, plan):
+    """The query tile and the cluster size the wrapper gives the CUDA kernel
+    (132 SMs, as on an H100 SXM)."""
+    qb, qpt, splits = tk.launch_plan(N, M, D, 132)
+    assert (qb, qpt, splits) == plan
+    assert (qb, qpt) in tk.QUERY_TILES and splits in (1, 2, 4, 8)
+    assert 128 % (qb // qpt) == 0 and (qpt == 1 or D == 10)
+    assert splits <= max(1, -(-M // tk.tile_rows(D)))  # no split without a tile
+    if N == 128 and M >= 8 * tk.tile_rows(D):
+        assert -(-N // qb) * splits >= tk.BUSY_BLOCKS
+
+
+@pytest.mark.parametrize("D", [0, 65])
+def test_launch_plan_rejects_widths_the_kernel_does_not_take(D):
+    with pytest.raises(ValueError, match="width"):
+        tk.launch_plan(128, 8192, D, 132)
+
+
+def test_prepare_needs_card_tensors():
+    d1, v1, d2, v2 = random_sets(8, 64, seed=8)
+    with pytest.raises(ValueError, match="kernel argument on cpu"):
+        tk.prepare(t(d1), t(v1), t(d2), t(v2), 0.2, 0.8)

@@ -181,7 +181,7 @@ from tpuvo_torch.engine.vo import run_sequence
 cfg = EngineConfig(map_capacity=256)
 w = synthetic.make_world(1, 300, 8.0)
 seq = synthetic.render_sequence(w, synthetic.make_planar_trajectory(10, seed=1), cfg, seed=1)
-_, logs, poses, _ = run_sequence(seq, cfg)
+_, logs, poses, _ = run_sequence(seq, cfg, device="cpu")
 assert poses.shape == (10, 4, 4) and bool(poses.isfinite().all())
 assert not any(m == "jax" or m.startswith(("jax.", "tpuvo.")) for m in sys.modules
                if sys.modules[m] is not None)

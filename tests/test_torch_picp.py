@@ -169,3 +169,25 @@ def test_wrapper_rejects_annealing_on_cuda_only():
     n0 = tk.launches
     res = tk.solve_cuda(K, t(T0), t(X), t(Z), None, t(V), W, H, cfg)
     assert torch.isfinite(res.T).all() and tk.launches == n0
+
+
+@pytest.mark.parametrize("batch", [(), (3,)])
+def test_kernel_outputs_have_the_plain_dtypes(batch):
+    """The kernel writes the typed PICPResult itself (no conversion kernel
+    after it): the buffers the wrapper gives it have the plain solver's
+    dtypes and shapes."""
+    X, Z, V, _, T0 = make_problem()
+    ref = tpicp.solve(t(K), t(T0), t(X), t(Z), None, t(V), W, H, PICPConfig())
+    out = tk.empty_result(batch, "cpu")
+    for o, r in zip(out, ref):
+        assert o.dtype == r.dtype and o.shape == batch + r.shape
+
+
+def test_prepare_rejects_what_the_kernel_does_not_take():
+    X, Z, V, _, T0 = make_problem()
+    n = tk.MAX_POINTS + 1
+    big = lambda a: t(np.resize(a, (n,) + a.shape[1:]))
+    with pytest.raises(ValueError, match="at most"):
+        tk.prepare(K, t(T0), big(X), big(Z), None, big(V), W, H, PICPConfig())
+    with pytest.raises(ValueError, match="kernel argument on cpu"):
+        tk.prepare(K, t(T0), t(X), t(Z), None, t(V), W, H, PICPConfig())

@@ -11,6 +11,7 @@ relative).
 """
 
 import dataclasses
+import inspect
 
 import jax
 import jax.numpy as jnp
@@ -68,7 +69,7 @@ def test_slam_step_from_jax_carry(branch):
     seq = fixture(jc)
     sj, _ = jvo.bootstrap_jit(jax.random.PRNGKey(42), jvo.frame_of(seq, 0), jvo.frame_of(seq, 1), jc)
     carry = jax_carry(sj, jc, seq.uv.shape[1])
-    frames = tvo.frames_of(seq, 0, F)
+    frames = tvo.frames_of(seq, 0, F, "cpu")
     R = tc.local_ba_window
     n_ba = 0
     for i in range(F - 1):
@@ -105,17 +106,17 @@ def test_online_slam_matches_batch_and_carry_round_trip():
     seq = fixture(tc)
     n = 14
     sub = type(seq)(*[np.asarray(a)[:n] for a in seq])
-    state, logs, poses, diag = tslam.run_sequence_slam(sub, tc, seed=42)
+    state, logs, poses, diag = tslam.run_sequence_slam(sub, tc, seed=42, device="cpu")
     assert diag["n_local_ba_runs"] == len([k for k in range(1, n) if k >= 6 and k % 2 == 0])
     assert torch.isfinite(poses).all() and logs.pose.shape == (n - 1, 4, 4)
     s = tslam.OnlineSLAM(tc, max_frames=n, seed=42)
-    s.start(tvo.frame_of(sub, 0), tvo.frame_of(sub, 1))
+    s.start(tvo.frame_of(sub, 0, "cpu"), tvo.frame_of(sub, 1, "cpu"))
     for i in range(1, n):
-        s.step(tvo.frame_of(sub, i))
+        s.step(tvo.frame_of(sub, i, "cpu"))
     assert torch.equal(s.poses, poses)
     assert s.n_local_ba_runs == diag["n_local_ba_runs"] and s.frame_count == n
     with pytest.raises(RuntimeError, match="max_frames"):
-        s.step(tvo.frame_of(sub, 1))
+        s.step(tvo.frame_of(sub, 1, "cpu"))
     back = tslam.carry_from_numpy(tslam.carry_to_numpy(s._carry))
     for a, b in zip(back, s._carry):
         if isinstance(a, int):
@@ -154,11 +155,28 @@ def test_check_evict_age_raises():
         tslam._check_evict_age(cfg)
     seq = fixture(cfg)
     with pytest.raises(ValueError, match="ring"):
-        tslam.run_sequence_slam(seq, cfg)
+        tslam.run_sequence_slam(seq, cfg, device="cpu")
     with pytest.raises(ValueError, match="ring"):
-        tslam.OnlineSLAM(cfg).start(tvo.frame_of(seq, 0), tvo.frame_of(seq, 1))
+        tslam.OnlineSLAM(cfg).start(tvo.frame_of(seq, 0, "cpu"), tvo.frame_of(seq, 1, "cpu"))
     tslam._check_evict_age(cfg.replace(map_evict_age=35))  # beyond the horizon: fine
     tslam._check_evict_age(cfg.replace(map_evict_age=0))   # eviction off: fine
+
+
+@pytest.mark.parametrize("entry", ["run_sequence", "run_sequence_slam", "frames_of", "frame_of"])
+def test_entry_points_default_to_the_card(entry):
+    """The port's entry points run on the card unless the caller asks for
+    the CPU; without a card a call with the default device raises, it never
+    falls back to the CPU."""
+    fn = {"run_sequence": tvo.run_sequence, "run_sequence_slam": tslam.run_sequence_slam,
+          "frames_of": tvo.frames_of, "frame_of": tvo.frame_of}[entry]
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if torch.cuda.is_available():
+        return
+    _, cfg = both_cfgs()
+    seq = fixture(cfg)
+    args = {"frames_of": (seq, 0, 2), "frame_of": (seq, 0)}.get(entry, (seq, cfg))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fn(*args)
 
 
 def test_local_ba_cfg_matches_jax():

@@ -92,7 +92,7 @@ def test_bootstrap_matches_jax():
     seq = make_seq(jc)
     f0j, f1j = jvo.frame_of(seq, 0), jvo.frame_of(seq, 1)
     sj, dj = jvo.bootstrap_jit(jax.random.PRNGKey(42), f0j, f1j, jc)
-    st, dt = tvo.bootstrap(None, tvo.frame_of(seq, 0), tvo.frame_of(seq, 1), tc,
+    st, dt = tvo.bootstrap(None, tvo.frame_of(seq, 0, "cpu"), tvo.frame_of(seq, 1, "cpu"), tc,
                            sample_idx=jax_sample_idx(42, f0j, f1j, jc))
     # the RANSAC refit's fp32 9x9 eigenvector differs between the two
     # libraries' eigensolvers at ~1e-3 (see test_torch_geometry)
@@ -134,7 +134,7 @@ def test_track_step_from_jax_state(branch):
     seq = make_seq(jc, noise=0.3)
     F = seq.uv.shape[0]
     sj, _ = jvo.bootstrap_jit(jax.random.PRNGKey(42), jvo.frame_of(seq, 0), jvo.frame_of(seq, 1), jc)
-    frames = tvo.frames_of(seq, 0, F)
+    frames = tvo.frames_of(seq, 0, F, "cpu")
     for i in range(F - 1):
         st = tstate.state_from_numpy(sj)
         sj2, lj = jvo.track_step_jit(sj, jvo.frame_of(seq, i), jvo.frame_of(seq, i + 1), jc)
@@ -158,7 +158,7 @@ def test_annealed_with_pallas_backend_raises():
     _, tc = both_cfgs(mode="fixed", map_capacity=256, max_obs=64,
                       picp=dict(backend="pallas", annealed_kernel=True))
     seq = make_seq(tc, frames=3)
-    fr = tvo.frames_of(seq, 0, 3)
+    fr = tvo.frames_of(seq, 0, 3, "cpu")
     state, _ = tvo.bootstrap(tvo.make_generator(1), tvo.frame_at(fr, 0), tvo.frame_at(fr, 1), tc)
     with pytest.raises(ValueError, match="annealed"):
         tvo.track_step(state, tvo.frame_at(fr, 0), tvo.frame_at(fr, 1), tc)
@@ -173,7 +173,7 @@ def test_synthetic_closed_loop(kernels):
     world = synthetic.make_world(5, n_landmarks=800, xy_extent=8.0)
     gt = synthetic.make_planar_trajectory(40, step=0.2, turn=0.03, seed=5)
     seq = synthetic.render_sequence(world, gt, pixel_noise=0.0, seed=5)
-    _, _, poses, _ = tvo.run_sequence(seq, cfg)
+    _, _, poses, _ = tvo.run_sequence(seq, cfg, device="cpu")
     m = metrics_dict(evaluate(poses, gt))
     assert m["trans_err_robot_mean"] < 0.05
     assert m["rot_err_fixed_mean"] < 0.02
@@ -188,7 +188,7 @@ def test_synthetic_with_noise(kernels):
     world = synthetic.make_world(7, n_landmarks=800, xy_extent=8.0)
     gt = synthetic.make_planar_trajectory(30, step=0.2, turn=0.02, seed=7)
     seq = synthetic.render_sequence(world, gt, pixel_noise=0.3, seed=7)
-    _, _, poses, _ = tvo.run_sequence(seq, cfg)
+    _, _, poses, _ = tvo.run_sequence(seq, cfg, device="cpu")
     assert metrics_dict(evaluate(poses, gt))["ate_rmse"] < 0.75
 
 
@@ -214,16 +214,16 @@ def test_streaming_and_batch_entry_points_agree():
     cfg = EngineConfig(mode="fixed", map_capacity=256, max_obs=64)
     seq = make_seq(cfg, seed=11, frames=12)
     F = seq.uv.shape[0]
-    _, logs, poses, _ = tvo.run_sequence(seq, cfg, seed=42)
+    _, logs, poses, _ = tvo.run_sequence(seq, cfg, seed=42, device="cpu")
     sess = tvo.OnlineVO(cfg, seed=42)
-    sess.start(tvo.frame_of(seq, 0), tvo.frame_of(seq, 1))
-    online = [torch.eye(4)] + [sess.step(tvo.frame_of(seq, i)) for i in range(1, F)]
+    sess.start(tvo.frame_of(seq, 0, "cpu"), tvo.frame_of(seq, 1, "cpu"))
+    online = [torch.eye(4)] + [sess.step(tvo.frame_of(seq, i, "cpu")) for i in range(1, F)]
     assert torch.equal(torch.stack(online), poses)
     assert sess.frame_count == F
-    fr = tvo.frames_of(seq, 0, F)
+    fr = tvo.frames_of(seq, 0, F, "cpu")
     _, lg = tvo.full_run(tvo.make_generator(42), tvo.frame_at(fr, 0), tvo.frame_at(fr, 1),
                          tvo.Frame(*(x[:-1] for x in fr)), tvo.Frame(*(x[1:] for x in fr)), cfg)
     assert torch.equal(lg.pose, poses[1:])
-    _, lg2, poses2, _ = tvo.run_sequence(seq, cfg.replace(log_stats=False), seed=42)
+    _, lg2, poses2, _ = tvo.run_sequence(seq, cfg.replace(log_stats=False), seed=42, device="cpu")
     assert torch.equal(poses2, poses)
     assert int(lg2.num_inliers.sum()) == 0 and int(logs.num_inliers.sum()) > 0

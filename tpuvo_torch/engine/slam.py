@@ -197,8 +197,9 @@ def carry_to(carry: SLAMCarry, device) -> SLAMCarry:
 
 
 def run_sequence_slam(seq, cfg: EngineConfig | None = None, seed: int = 42,
-                      device="cpu"):
-    """End-to-end SLAM-mode VO: bootstrap + tracking with local BA.
+                      device="cuda"):
+    """End-to-end SLAM-mode VO: bootstrap + tracking with local BA, on
+    ``device`` (the card by default, as ``vo.run_sequence``).
 
     Same returns as ``vo.run_sequence``: (final state, logs, poses (F, 4, 4)
     camera-in-world, diag).  The poses include the local-BA corrections;

@@ -49,8 +49,18 @@ def _tensor(x, dtype, device):
     return torch.as_tensor(x, dtype=dtype, device=device)
 
 
-def frames_of(seq, lo: int, hi: int, device="cpu") -> Frame:
-    """Frames [lo, hi) of a FrameObservations as one stacked Frame."""
+def _check_device(device) -> None:
+    """The entry points run on the card unless the caller asks for the CPU;
+    without a card they raise rather than fall back."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r}: no CUDA device is available "
+                           "(pass device='cpu' to run on the CPU)")
+
+
+def frames_of(seq, lo: int, hi: int, device="cuda") -> Frame:
+    """Frames [lo, hi) of a FrameObservations as one stacked Frame on
+    ``device`` (the card by default)."""
+    _check_device(device)
     return Frame(
         _tensor(seq.uv[lo:hi], torch.float32, device),
         _tensor(seq.desc[lo:hi], torch.float32, device),
@@ -60,7 +70,7 @@ def frames_of(seq, lo: int, hi: int, device="cpu") -> Frame:
     )
 
 
-def frame_of(seq, i: int, device="cpu") -> Frame:
+def frame_of(seq, i: int, device="cuda") -> Frame:
     return frame_at(frames_of(seq, i, i + 1, device), 0)
 
 
@@ -338,9 +348,11 @@ def make_generator(seed: int) -> torch.Generator:
 
 
 def run_sequence(seq, cfg: EngineConfig | None = None, seed: int = 42,
-                 device="cpu", sample_idx=None):
-    """End-to-end VO over a FrameObservations.  Returns (final state, logs,
-    poses (F, 4, 4) camera-in-world incl. the identity first pose, diag)."""
+                 device="cuda", sample_idx=None):
+    """End-to-end VO over a FrameObservations on ``device`` (the card by
+    default; ``device="cpu"`` runs the plain versions of the kernels).
+    Returns (final state, logs, poses (F, 4, 4) camera-in-world incl. the
+    identity first pose, diag)."""
     cfg = cfg or EngineConfig()
     F = seq.uv.shape[0]
     frames = frames_of(seq, 0, F, device)

@@ -28,11 +28,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # world, idx, uv, valid, T0, T_out, stats, B, N, M, fx, fy, cx, cy,
-    # width, height, thr, damping, conv, max_it, min_inl, keep_outliers, stream
-    "tpuvo_picp_solve": [_P] * 7 + [_I] * 3 + [_F] * 9 + [_I] * 3 + [_P],
-    # d1, v1, d2, v2, best, idx, second, accept, N, M, D, dist_thr, ratio_thr, stream
-    "tpuvo_match_top2": [_P] * 8 + [_I] * 3 + [_F] * 2 + [_P],
+    # world, idx, uv, valid, T0, then the outputs T, num_inliers, chi_inliers,
+    # chi_outliers, iterations, converged; B, N, M, fx, fy, cx, cy, width,
+    # height, thr, damping, conv, max_it, min_inl, keep_outliers, stream
+    "tpuvo_picp_solve": [_P] * 11 + [_I] * 3 + [_F] * 9 + [_I] * 3 + [_P],
+    # d1, v1, d2, v2, best, idx, second, accept, N, M, D, query tile,
+    # queries per thread, map splits, dist_thr, ratio_thr, stream
+    "tpuvo_match_top2": [_P] * 8 + [_I] * 6 + [_F] * 2 + [_P],
 }
 
 _lib = None
@@ -99,11 +101,10 @@ def check_device(*tensors) -> None:
     """Every kernel argument must be a contiguous tensor on the current device."""
     import torch
 
-    dev = torch.cuda.current_device()
     for t in tensors:
         if t is None:
             continue
-        if not t.is_cuda or t.device.index != dev:
-            raise ValueError(f"kernel argument on {t.device}, expected cuda:{dev}")
+        if not t.is_cuda or t.device.index != torch.cuda.current_device():
+            raise ValueError(f"kernel argument on {t.device}, expected the current CUDA device")
         if not t.is_contiguous():
             raise ValueError("kernel argument must be contiguous")

@@ -2,14 +2,17 @@
 
 Replaces the TPU kernel ``tpuvo/ops/pallas/match_kernel.py:_tile_kernel``
 (launched by ``match_topk_pallas``, wrapped by ``match_descriptors_pallas``).
-On an H100 the main path's shape (128 queries against an 8192-slot map,
-D = 10) is bound by the per-block scan latency, not by bandwidth or FLOPs.
-The TPU kernel folded map tiles into a running accumulator over sequential
-grid steps; CUDA blocks run in no order, so the kernel gives each query row
-its own block, whose threads stride over the whole map and merge their
-partial (best, idx, second) lexicographically on (dist, idx) — the
-first-index tie rule holds whatever the merge order.  The acceptance test
-runs in the same launch, so one call yields the whole ``MatchResult``.
+On an H100 the work is fp32 FMAs (2·N·M·D FLOP; D = 10 gives the tensor
+cores nothing to do).  The TPU kernel folded map tiles into a running
+accumulator over sequential grid steps; CUDA blocks run in no order, so the
+kernel gives each block a tile of query rows (the query in registers),
+streams the map through shared memory with |b|^2 computed once per row, and
+splits the map across the blocks of a thread-block cluster, whose partial
+(best, idx, second) merge through distributed shared memory
+lexicographically on (dist, idx) — the first-index tie rule holds whatever
+the merge order.  ``launch_plan`` picks the query tile and the cluster size
+from the shape.  The acceptance test runs in the same launch, so one call
+yields the whole ``MatchResult``.
 
 For CPU tensors the wrapper runs ``match_topk_reference``, the plain
 version; for CUDA tensors it launches the kernel or raises.
@@ -17,12 +20,64 @@ version; for CUDA tensors it launches the kernel or raises.
 
 from __future__ import annotations
 
+import functools
+import math
+
 import torch
 
 from tpuvo_torch.ops.cuda import build
 from tpuvo_torch.ops.match import MatchResult, accept_matches, top2_min
 
 launches = 0  # kernel launches in this process (reset by callers that count)
+
+MAX_D = 64             # descriptor widths the kernel takes (csrc/match.cu)
+# (query rows per 128-thread block, queries per thread), widest first; 4
+# queries a thread (one shared-memory row load feeds 4 of them) only at
+# the engine's D = 10
+QUERY_TILES = ((256, 4), (128, 1), (64, 1), (32, 1), (16, 1), (8, 1))
+MAX_SPLITS = 8         # map splits = cluster size (the portable limit)
+BUSY_BLOCKS = 64       # blocks (SMs) the tracker's N = 128 should keep busy
+BLOCKS_PER_SM = 4      # resident 4-warp blocks per SM worth splitting the map for
+
+
+def tile_rows(D: int) -> int:
+    """Map rows per staged tile (``Shape<DP, QPT>::kRows`` in csrc/match.cu)."""
+    return 128 if D == 10 else 32
+
+
+def launch_plan(N: int, M: int, D: int, sms: int) -> tuple[int, int, int]:
+    """(query rows per block, queries per thread, map splits) for an
+    (N, D) x (M, D) match on a card with ``sms`` SMs.
+
+    The query tile is the widest that still gives BUSY_BLOCKS blocks with
+    the widest cluster (16 rows at the tracker's N = 128: 64 blocks; 256
+    rows, 4 a thread, at the refiner's 25,600: the map is read from L2 once
+    per 256 queries).  The map splits are the fewest (a power of two, each
+    at least one staged tile) that give BLOCKS_PER_SM blocks per SM, at most
+    MAX_SPLITS."""
+    if not 1 <= D <= MAX_D:
+        raise ValueError(f"the top-2 kernel takes descriptors of width 1..{MAX_D}, not {D}")
+    tiles = [(qb, qpt) for qb, qpt in QUERY_TILES if qpt == 1 or D == 10]
+    qb, qpt = next(((qb, qpt) for qb, qpt in tiles
+                    if math.ceil(N / qb) * MAX_SPLITS >= BUSY_BLOCKS), tiles[-1])
+    if math.ceil(N / qb) > 65535:
+        raise ValueError(f"{N} query rows exceed the kernel's grid (65535 x {qb})")
+    q_tiles, m_tiles = math.ceil(N / qb), max(1, math.ceil(M / tile_rows(D)))
+    splits = 1
+    while (splits < MAX_SPLITS and 2 * splits <= m_tiles
+           and q_tiles * splits < BLOCKS_PER_SM * sms):
+        splits *= 2
+    return qb, qpt, splits
+
+
+def _aligned(x: torch.Tensor, nbytes: int) -> torch.Tensor:
+    """x itself, or a fresh copy where a view leaves it off an nbytes boundary."""
+    return x if x.data_ptr() % nbytes == 0 else x.clone()
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def _ordered_dot(a, b):
@@ -51,31 +106,39 @@ def match_topk_reference(desc1, valid1, desc2, valid2):
     return top2_min(dist, valid2)
 
 
-def _launch(desc1, valid1, desc2, valid2, distance_threshold, ratio_threshold):
-    global launches
-    lib = build.library()
+def prepare(desc1, valid1, desc2, valid2, distance_threshold, ratio_threshold):
+    """Checked kernel arguments for CUDA tensors and freshly allocated
+    outputs: returns (launch, result), where ``launch()`` enqueues one
+    kernel that writes the ``MatchResult``."""
+    N, D = desc1.shape
+    M = desc2.shape[0]
+    if desc2.shape[1] != D or valid1.shape != (N,) or valid2.shape != (M,):
+        raise ValueError(f"shape mismatch: desc1 {tuple(desc1.shape)}, desc2 "
+                         f"{tuple(desc2.shape)}, valid1 {tuple(valid1.shape)}, "
+                         f"valid2 {tuple(valid2.shape)}")
     d1 = desc1.float().contiguous()
-    d2 = desc2.float().contiguous()
-    v1 = valid1.to(torch.bool).contiguous()
-    v2 = valid2.to(torch.bool).contiguous()
-    N, D = d1.shape
-    M = d2.shape[0]
-    if d2.shape[1] != D or v1.shape != (N,) or v2.shape != (M,):
-        raise ValueError(f"shape mismatch: desc1 {tuple(d1.shape)}, desc2 "
-                         f"{tuple(d2.shape)}, valid1 {tuple(v1.shape)}, valid2 {tuple(v2.shape)}")
+    d2 = _aligned(desc2.float().contiguous(), 16)  # the kernel copies the map in 16 bytes
+    v1 = _aligned(valid1.to(torch.bool).contiguous(), 4)
+    v2 = _aligned(valid2.to(torch.bool).contiguous(), 4)
     build.check_device(d1, v1, d2, v2)
+    qb, qpt, splits = launch_plan(N, M, D, _sm_count(d1.device.index))
+    lib = build.library()
     best = torch.empty(N, dtype=torch.float32, device=d1.device)
     idx = torch.empty(N, dtype=torch.int64, device=d1.device)
     second = torch.empty(N, dtype=torch.float32, device=d1.device)
     accept = torch.empty(N, dtype=torch.bool, device=d1.device)
     stream = torch.cuda.current_stream(d1.device).cuda_stream
-    err = lib.tpuvo_match_top2(
-        d1.data_ptr(), v1.data_ptr(), d2.data_ptr(), v2.data_ptr(),
-        best.data_ptr(), idx.data_ptr(), second.data_ptr(), accept.data_ptr(),
-        N, M, D, float(distance_threshold), float(ratio_threshold), stream)
-    build.check(err, "tpuvo_match_top2")
-    launches += 1
-    return MatchResult(idx=idx, valid=accept, best=best, second=second)
+    args = (d1.data_ptr(), v1.data_ptr(), d2.data_ptr(), v2.data_ptr(),
+            best.data_ptr(), idx.data_ptr(), second.data_ptr(), accept.data_ptr(),
+            N, M, D, qb, qpt, splits, float(distance_threshold), float(ratio_threshold), stream)
+
+    # every buffer the kernel touches lives as long as launch does
+    def launch(_alive=(d1, v1, d2, v2, best, idx, second, accept)):
+        global launches
+        build.check(lib.tpuvo_match_top2(*args), "tpuvo_match_top2")
+        launches += 1
+
+    return launch, MatchResult(idx=idx, valid=accept, best=best, second=second)
 
 
 def match_descriptors_cuda(desc1, valid1, desc2, valid2,
@@ -87,4 +150,6 @@ def match_descriptors_cuda(desc1, valid1, desc2, valid2,
         best, idx, second = match_topk_reference(desc1, valid1, desc2, valid2)
         accept = accept_matches(best, second, valid1, distance_threshold, ratio_threshold)
         return MatchResult(idx=idx, valid=accept, best=best, second=second)
-    return _launch(desc1, valid1, desc2, valid2, distance_threshold, ratio_threshold)
+    launch, result = prepare(desc1, valid1, desc2, valid2, distance_threshold, ratio_threshold)
+    launch()
+    return result

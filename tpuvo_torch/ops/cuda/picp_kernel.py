@@ -4,14 +4,14 @@ Replaces the TPU kernel ``tpuvo/ops/pallas/picp_kernel.py:_make_kernel``
 (launched by ``_solve_pallas_impl``, public entry ``solve_pallas``): the
 whole Gauss-Newton loop for one pose in one kernel.  On an H100 the solve is
 bound by latency — a chain of dependent rounds over ~128 points, each round
-a handful of reductions and a serial 6x6 Cholesky — not by bytes or FLOPs.
-The kernel therefore keeps a problem inside one warp: lanes stride over the
-points, the 30 sums are butterfly-reduced so every lane holds them, and
-every lane solves and updates the pose redundantly, so the loop state is
-warp-uniform and nothing diverges or waits on a block barrier.  The grid
-runs over the batch: one launch solves B problems.  The correspondence
-gather (``world_pts[corr_idx]``) happens inside the kernel.  K, the robust
-threshold and the GN schedule are kernel arguments.
+a reduction, a barrier and a serial 6x6 Cholesky — not by bytes or FLOPs.
+The kernel gives each problem a 128-thread block, gathers and stages its
+valid points in shared memory once, and solves every round from there; the
+grid runs over the batch, so one launch solves B problems.  The
+correspondence gather (``world_pts[corr_idx]``) happens inside the kernel,
+and the kernel writes the typed ``PICPResult`` itself: a call launches one
+kernel and nothing else.  K, the robust threshold and the GN schedule are
+kernel arguments.
 
 For CPU tensors the wrapper runs ``tpuvo_torch.ops.picp.solve``, the plain
 version; for CUDA tensors it launches the kernel or raises.
@@ -28,27 +28,31 @@ from tpuvo_torch.ops.cuda import build
 
 launches = 0  # kernel launches in this process (reset by callers that count)
 
+# points a problem may have: the kernel stages 5 floats per point in shared
+# memory, at most 227 KB a block on Hopper less its 1 KB of static buffers
+MAX_POINTS = (227 * 1024 - 1024) // (5 * 4)
 
-def solve_cuda(K, T_init, world_pts, image_uv, corr_idx, corr_valid,
-               width: int, height: int, cfg: PICPConfig) -> picp.PICPResult:
-    """Drop-in replacement for ``ops.picp.solve`` with the fused kernel.
 
-    Unbatched: T_init (4, 4), world_pts (M, 3), image_uv (N, 2), corr_idx
-    (N,) or None (world_pts already per observation), corr_valid (N,).
-    Batched: the same with a leading axis B on every argument.
-    """
-    global launches
-    # K's entries are kernel arguments: a CUDA K would cost a device->host
-    # copy, so the tracker passes cfg.K() (numpy)
-    Kh = K.detach().cpu().numpy() if isinstance(K, torch.Tensor) else np.asarray(K)
-    if not T_init.is_cuda:
-        Kt = torch.as_tensor(Kh, dtype=torch.float32)
-        return picp.solve(Kt, T_init, world_pts, image_uv, corr_idx, corr_valid,
-                          width, height, cfg)
+def empty_result(batch: tuple, device) -> picp.PICPResult:
+    """The kernel's outputs, uninitialised, with the plain solver's dtypes."""
+    f32, i32 = dict(dtype=torch.float32, device=device), dict(dtype=torch.int32, device=device)
+    return picp.PICPResult(
+        T=torch.empty(batch + (4, 4), **f32), num_inliers=torch.empty(batch, **i32),
+        chi_inliers=torch.empty(batch, **f32), chi_outliers=torch.empty(batch, **f32),
+        iterations=torch.empty(batch, **i32),
+        converged=torch.empty(batch, dtype=torch.bool, device=device))
+
+
+def prepare(K, T_init, world_pts, image_uv, corr_idx, corr_valid,
+            width: int, height: int, cfg: PICPConfig):
+    """Checked kernel arguments for CUDA tensors and freshly allocated
+    outputs: returns (launch, result), where ``launch()`` enqueues one
+    kernel that writes ``result``.  ``solve_cuda`` calls it once; a timing
+    loop may call it many times into the same outputs."""
     if cfg.annealed_kernel:
         raise ValueError("the fused PICP kernel has no annealing schedule; "
                          "use picp.backend='xla' for annealed_kernel=True")
-    lib = build.library()
+    Kh = K.detach().cpu().numpy() if isinstance(K, torch.Tensor) else np.asarray(K)
     batched = T_init.dim() == 3
     add = (lambda t: t) if batched else (lambda t: None if t is None else t[None])
     T0 = add(T_init).float().contiguous()
@@ -64,26 +68,42 @@ def solve_cuda(K, T_init, world_pts, image_uv, corr_idx, corr_valid,
         raise ValueError("solve_cuda: inconsistent shapes "
                          f"T {tuple(T0.shape)} world {tuple(world.shape)} "
                          f"uv {tuple(uv.shape)} valid {tuple(valid.shape)}")
+    if N > MAX_POINTS:
+        raise ValueError(f"the fused PICP kernel takes at most {MAX_POINTS} points "
+                         f"per problem, not {N}")
     build.check_device(T0, world, uv, idx, valid)
-    T_out = torch.empty((B, 4, 4), dtype=torch.float32, device=T0.device)
-    stats = torch.empty((B, 8), dtype=torch.float32, device=T0.device)
+    lib = build.library()
+    out = empty_result((B,), T0.device)
     stream = torch.cuda.current_stream(T0.device).cuda_stream
-    err = lib.tpuvo_picp_solve(
-        world.data_ptr(), None if idx is None else idx.data_ptr(), uv.data_ptr(),
-        valid.data_ptr(), T0.data_ptr(), T_out.data_ptr(), stats.data_ptr(),
-        B, N, M, float(Kh[0, 0]), float(Kh[1, 1]), float(Kh[0, 2]), float(Kh[1, 2]),
-        float(width), float(height), float(cfg.kernel_threshold), float(cfg.damping),
-        float(cfg.convergence_threshold), int(cfg.max_iterations),
-        int(cfg.min_num_inliers), int(cfg.keep_outliers), stream)
-    build.check(err, "tpuvo_picp_solve")
-    launches += 1
-    if not batched:
-        T_out, stats = T_out[0], stats[0]
-    return picp.PICPResult(
-        T=T_out,
-        num_inliers=stats[..., 0].to(torch.int32),
-        chi_inliers=stats[..., 1],
-        chi_outliers=stats[..., 2],
-        iterations=stats[..., 3].to(torch.int32),
-        converged=stats[..., 4] > 0.5,
-    )
+    args = (world.data_ptr(), None if idx is None else idx.data_ptr(), uv.data_ptr(),
+            valid.data_ptr(), T0.data_ptr(), *(x.data_ptr() for x in out),
+            B, N, M, float(Kh[0, 0]), float(Kh[1, 1]), float(Kh[0, 2]), float(Kh[1, 2]),
+            float(width), float(height), float(cfg.kernel_threshold), float(cfg.damping),
+            float(cfg.convergence_threshold), int(cfg.max_iterations),
+            int(cfg.min_num_inliers), int(cfg.keep_outliers), stream)
+
+    # every buffer the kernel touches lives as long as launch does
+    def launch(_alive=(T0, world, uv, idx, valid, out)):
+        global launches
+        build.check(lib.tpuvo_picp_solve(*args), "tpuvo_picp_solve")
+        launches += 1
+
+    return launch, (out if batched else picp.PICPResult(*(x[0] for x in out)))
+
+
+def solve_cuda(K, T_init, world_pts, image_uv, corr_idx, corr_valid,
+               width: int, height: int, cfg: PICPConfig) -> picp.PICPResult:
+    """Drop-in replacement for ``ops.picp.solve`` with the fused kernel.
+
+    Unbatched: T_init (4, 4), world_pts (M, 3), image_uv (N, 2), corr_idx
+    (N,) or None (world_pts already per observation), corr_valid (N,).
+    Batched: the same with a leading axis B on every argument.
+    """
+    if not T_init.is_cuda:
+        Kh = K.detach().cpu().numpy() if isinstance(K, torch.Tensor) else np.asarray(K)
+        return picp.solve(torch.as_tensor(Kh, dtype=torch.float32), T_init, world_pts,
+                          image_uv, corr_idx, corr_valid, width, height, cfg)
+    launch, result = prepare(K, T_init, world_pts, image_uv, corr_idx, corr_valid,
+                             width, height, cfg)
+    launch()
+    return result
