@@ -330,3 +330,109 @@ def test_track_step_on_card_matches_cpu(dev):
         assert int(lgg.n_map_matches) == int(lg.n_map_matches)
         assert int(lgg.num_inliers) == int(lg.num_inliers)
         state = s2
+
+
+# ------------------------------------------------------------------ lanes --
+def lane_match_sets(m, dev, B=3, seed=21):
+    """B lanes of match_sets at map size m; lane 1's map all invalid."""
+    sets = [match_sets(128, m, seed + b, dev) for b in range(B)]
+    d1, v1, d2, v2 = (torch.stack(a) for a in zip(*sets))
+    v2[1] = False
+    return d1, v1, d2, v2
+
+
+def check_lanes(got, d1, v1, d2, v2):
+    """Each lane of a launch against the plain version on that lane."""
+    for b in range(d1.shape[0]):
+        check_match(type(got)(*(x[b] for x in got)), d1[b], v1[b], d2[b], v2[b])
+
+
+@pytest.mark.parametrize("m", [511, 512, 8191])
+def test_match_kernel_lanes(dev, m):
+    """One launch for B = 3 lanes, each against its own map (odd m puts odd
+    lanes' maps off 16 bytes), one lane's map all invalid, exact duplicates
+    in each lane: every lane as the plain version, in one launch."""
+    d1, v1, d2, v2 = lane_match_sets(m, dev)
+    n0 = match_kernel.launches
+    got = match_kernel.match_descriptors_cuda(d1, v1, d2, v2)
+    assert match_kernel.launches == n0 + 1 and got.idx.shape == (3, 128)
+    check_lanes(got, d1, v1, d2, v2)
+    assert not got.valid[1].any() and torch.isinf(got.best[1]).all()
+    for b in (0, 2):  # the duplicate pair: first index, distance 0
+        assert int(got.idx[b, -1]) == 3 and float(got.best[b, -1]) == 0.0
+    best, idx, _ = match_kernel.match_topk_reference(d1, v1, d2, v2)  # the plain version, lanes
+    fin = torch.isfinite(best)
+    assert torch.equal(got.idx[fin], idx[fin])
+
+
+def test_match_kernel_lane_views_and_duplicates_across_blocks(dev):
+    """Lanes that are views: queries as frame i of (B, F, N, D) frames, maps
+    as the first C rows of (B, C + 1, D) (lane stride off 16 bytes), valid
+    flags off 4 bytes, and one query lane shared by all (stride 0); copies of
+    a query on both sides of the cluster's map splits in every lane."""
+    n, m, B = 128, 8192, 3
+    d1, v1, d2, v2 = lane_match_sets(m, dev)
+    qb, qpt, splits = match_kernel.launch_plan(n, m, 10, torch.cuda.get_device_properties(0)
+                                               .multi_processor_count, B)
+    per_split = -(-(-(-m // match_kernel.tile_rows(10))) // splits) * match_kernel.tile_rows(10)
+    for b in range(B):
+        d2[b, 5] = d2[b, per_split + 3] = d1[b, 0]
+        v2[b, 5] = v2[b, per_split + 3] = True
+    frames = torch.stack([d1 - 1.0, d1], 1)  # (B, 2, N, D)
+    maps = torch.cat([d2, d2[:, :1]], 1)     # (B, m + 1, D)
+    flags = torch.cat([v2, v2[:, :1]], 1)
+    args = (frames[:, 1], v1, maps[:, :m], flags[:, :m])
+    assert args[2].stride(0) * 4 % 16 and args[3].stride(0) % 4
+    got = match_kernel.match_descriptors_cuda(*args)
+    check_lanes(got, d1, v1, d2, v2)
+    for b in range(B):
+        assert int(got.idx[b, 0]) == 5 and float(got.best[b, 0]) == 0.0
+    shared = match_kernel.match_descriptors_cuda(d1[0].expand(B, n, 10), v1[0].expand(B, n),
+                                                 d2, v2)
+    check_lanes(shared, d1[0].expand(B, n, 10), v1[0].expand(B, n), d2, v2)
+
+
+def test_picp_kernel_per_problem_thresholds(dev):
+    """A (B,) threshold array: every problem as the plain solve with the same
+    thresholds, on a ragged batch (each problem keeps 60-100% of its rows)
+    with outliers whose chi lies between the thresholds."""
+    B = 96
+    X, Z, V, T0 = picp_problems(B, seed=9)
+    Z[:, :10] += 40.0  # chi 3200: an outlier at 1000 and 3000, an inlier at 10000
+    rng = np.random.default_rng(9)
+    V &= rng.random(V.shape) < rng.uniform(0.6, 1.0, (B, 1))
+    args = [torch.as_tensor(a, device=dev) for a in (T0, X, Z)]
+    V = torch.as_tensor(V, device=dev)
+    thr = torch.tensor([1000.0, 3000.0, 10000.0], device=dev).repeat(B // 3)
+    cfg = PICPConfig(convergence_threshold=1e-4)
+    got = picp_kernel.solve_cuda(K, *args, None, V, 640, 480, cfg, thr)
+    ref = picp.solve(torch.as_tensor(K, device=dev), *args, None, V, 640, 480, cfg, thr)
+    check_picp(got, ref)
+    for k, t in enumerate((1000.0, 3000.0, 10000.0)):  # the lanes of threshold t, bit for bit
+        one = picp_kernel.solve_cuda(K, *args, None, V, 640, 480,
+                                     PICPConfig(convergence_threshold=1e-4, kernel_threshold=t))
+        assert torch.equal(got.T[k::3], one.T[k::3])
+
+
+def test_batched_track_step_on_card_matches_cpu(dev):
+    """Teacher forcing of three lanes (own noise, own map): each CPU batched
+    state stepped on the card through both kernels (one launch each for
+    all lanes) matches the CPU batched step."""
+    cfg = EngineConfig(mode="fixed", map_capacity=256, max_obs=64,
+                       matcher=MatcherConfig(method="pallas"),
+                       picp=PICPConfig(backend="pallas", convergence_threshold=1e-4))
+    world = synthetic.make_world(13, n_landmarks=300, xy_extent=8.0)
+    seqs = [synthetic.render_sequence(world, synthetic.make_planar_trajectory(10, seed=13), cfg,
+                                      pixel_noise=0.3, seed=s) for s in (13, 14, 15)]
+    fr, frg = vo.lanes_of(seqs, "cpu"), vo.lanes_of(seqs, dev)
+    state, _ = vo.bootstrap(vo.make_generator(42), vo.lane_frame_at(fr, 0),
+                            vo.lane_frame_at(fr, 1), cfg)
+    for i in range(fr.uv.shape[1] - 1):
+        s2, lg = vo.track_step(state, vo.lane_frame_at(fr, i), vo.lane_frame_at(fr, i + 1), cfg)
+        a0, b0 = picp_kernel.launches, match_kernel.launches
+        _, lgg = vo.track_step(VOState(*(x.to(dev) for x in state)), vo.lane_frame_at(frg, i),
+                               vo.lane_frame_at(frg, i + 1), cfg)
+        assert (picp_kernel.launches - a0, match_kernel.launches - b0) == (1, 1)
+        torch.testing.assert_close(lgg.pose.cpu(), lg.pose, atol=1e-4, rtol=0)
+        assert torch.equal(lgg.n_map_matches.cpu(), lg.n_map_matches)
+        state = s2

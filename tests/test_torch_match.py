@@ -188,3 +188,37 @@ def test_prepare_needs_card_tensors():
     d1, v1, d2, v2 = random_sets(8, 64, seed=8)
     with pytest.raises(ValueError, match="kernel argument on cpu"):
         tk.prepare(t(d1), t(v1), t(d2), t(v2), 0.2, 0.8)
+
+
+@pytest.mark.parametrize("lanes,M,plan", [
+    (256, 512, (128, 4, 2)),    # the batched tracker: one 4-a-thread tile a lane
+    (256, 8192, (128, 4, 2)),
+    (3, 8191, (32, 1, 8)),      # few lanes: a narrower tile keeps 64 blocks busy
+    (1, 8192, (16, 1, 8)),      # one lane: the single sequence's plan
+])
+def test_launch_plan_lanes(lanes, M, plan):
+    """Lanes multiply the blocks: at 256 lanes of N = 128 no query tile is
+    split and the map splits stop at LANE_BLOCKS_PER_SM blocks per SM."""
+    assert tk.launch_plan(128, M, 10, 132, lanes) == plan
+    qb, _, splits = plan
+    assert lanes * splits * -(-128 // qb) >= tk.BUSY_BLOCKS
+    with pytest.raises(ValueError, match="lanes"):
+        tk.launch_plan(128, M, 10, 132, tk.MAX_LANES + 1)
+
+
+def test_wrapper_lanes_match_each_lane_alone():
+    """With a leading lane axis (each lane its own map: odd M, one lane's
+    map all invalid, lanes that are views) the plain version and the
+    matchers give every lane the answer it gets alone."""
+    sets = [random_sets(32, 255, seed=s) for s in range(3)]
+    d1, v1, d2, v2 = (t(np.stack(a)) for a in zip(*sets))
+    v2[1] = False
+    frames = torch.stack([d1, d1 + 1.0], 1)  # (B, 2, N, D): lane views of stride 2·N·D
+    for method in ("pallas", "mxu", "direct"):
+        got = tm.match_descriptors(frames[:, 0], v1, d2, v2, method=method)
+        assert got.idx.shape == (3, 32)
+        for b in range(3):
+            one = tm.match_descriptors(d1[b], v1[b], d2[b], v2[b], method=method)
+            for x, y in zip(got, one):
+                assert torch.equal(x[b], y), (method, b)
+    assert not got.valid[1].any()

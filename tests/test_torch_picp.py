@@ -191,3 +191,20 @@ def test_prepare_rejects_what_the_kernel_does_not_take():
         tk.prepare(K, t(T0), big(X), big(Z), None, big(V), W, H, PICPConfig())
     with pytest.raises(ValueError, match="kernel argument on cpu"):
         tk.prepare(K, t(T0), t(X), t(Z), None, t(V), W, H, PICPConfig())
+
+
+def test_kernel_per_problem_thresholds():
+    """A (B,) threshold tensor gives each problem its own robust threshold:
+    problem b equals the solve with cfg.kernel_threshold = thr[b]."""
+    probs = [make_problem(seed=s) for s in range(3)]
+    bX, bZ, bV, _, bT = (np.stack(a) for a in zip(*probs))
+    bZ[:, :12] += 40.0  # outliers whose chi (3200) lies between the thresholds
+    thr = [1000.0, 3000.0, 10000.0]
+    cfg = PICPConfig(convergence_threshold=1e-4)
+    got = tk.solve_cuda(K, t(bT), t(bX), t(bZ), None, t(bV), W, H, cfg, torch.tensor(thr))
+    for b in range(3):
+        one = tk.solve_cuda(K, t(bT[b]), t(bX[b]), t(bZ[b]), None, t(bV[b]), W, H,
+                            PICPConfig(convergence_threshold=1e-4, kernel_threshold=thr[b]))
+        np.testing.assert_allclose(got.T[b].numpy(), one.T.numpy(), atol=1e-5)
+        assert int(got.num_inliers[b]) == int(one.num_inliers)
+    assert len(set(got.num_inliers.tolist())) > 1  # the thresholds split the inlier sets

@@ -41,10 +41,17 @@
 //     split across two blocks still gives the lower index.
 //     At N = 128: tiles of 16 queries x 8 splits = 64 blocks.  At the
 //     topology shape: tiles of 256 queries (4 a thread) x 8 splits = 800
-//     blocks, each reading its eighth of the map from L2 once.
+//     blocks, each reading its eighth of the map from L2 once;
+//   * lanes (the batched tracker: B sequences, each matched against its own
+//     map) go on blockIdx.z, each lane's arrays at its own lane stride (0
+//     shares one lane's array among all); the cluster stays (splits, 1, 1),
+//     inside one lane.  At B = 256, N = 128: one 128-query tile (4 a
+//     thread) per lane.
 // Tile and cluster sizes are chosen by the wrapper
-// (ops/cuda/match_kernel.launch_plan); the wrapper also guarantees the
-// alignment the copies need (d2 to 16 bytes, v1 and v2 to 4).
+// (ops/cuda/match_kernel.launch_plan).  Alignment is the kernel's own
+// affair: a lane's map that starts off 16 bytes (a lane stride of M·D
+// floats with M·D not a multiple of 4, or a view) is copied in 4-byte
+// pieces, and valid flags off 4 bytes by plain loads.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -108,7 +115,8 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
 
-// thread's copies of `bytes` bytes from src into dst (both 16-byte aligned)
+// thread's copies of `bytes` bytes from src into dst (dst 16-byte aligned;
+// src 16-byte aligned for copy16, 4 for copy4)
 __device__ __forceinline__ void copy16(void* dst, const void* src, int bytes, int tid) {
   for (int e = tid * 16; e < bytes; e += kThreads * 16)
     cp_async16((char*)dst + e, (const char*)src + e, min(16, bytes - e));
@@ -117,18 +125,33 @@ __device__ __forceinline__ void copy4(void* dst, const void* src, int bytes, int
   for (int e = tid * 4; e < bytes; e += kThreads * 4)
     cp_async4((char*)dst + e, (const char*)src + e, min(4, bytes - e));
 }
+// the map rows: 16-byte copies where the lane's rows allow them
+__device__ __forceinline__ void copy_rows(void* dst, const float* src, int bytes, bool vec,
+                                          int tid) {
+  if (vec) copy16(dst, src, bytes, tid);
+  else copy4(dst, src, bytes, tid);
+}
+// valid flags: 4-byte copies, or plain byte loads from an unaligned lane
+// (visible to the block at its next barrier, like the copies)
+__device__ __forceinline__ void copy_flags(uint8_t* dst, const uint8_t* src, int n, bool word,
+                                           int tid) {
+  if (word) copy4(dst, src, n, tid);
+  else
+    for (int e = tid; e < n; e += kThreads) dst[e] = src[e];
+}
 
 template <int DP, int QPT>
 __global__ void __launch_bounds__(kThreads) match_top2_kernel(
-    const float* __restrict__ d1,        // (N, D)
-    const uint8_t* __restrict__ v1,      // (N,)
-    const float* __restrict__ d2,        // (M, D)
-    const uint8_t* __restrict__ v2,      // (M,)
-    float* __restrict__ best_out,        // (N,)
-    int64_t* __restrict__ idx_out,       // (N,)
-    float* __restrict__ second_out,      // (N,)
-    uint8_t* __restrict__ accept_out,    // (N,)
-    int N, int M, int D, int qb, int tiles_per_split, float dist_thr, float ratio_thr) {
+    const float* __restrict__ d1,        // (B, N, D), lane stride s_d1
+    const uint8_t* __restrict__ v1,      // (B, N), lane stride s_v1
+    const float* __restrict__ d2,        // (B, M, D), lane stride s_d2
+    const uint8_t* __restrict__ v2,      // (B, M), lane stride s_v2
+    float* __restrict__ best_out,        // (B, N)
+    int64_t* __restrict__ idx_out,       // (B, N)
+    float* __restrict__ second_out,      // (B, N)
+    uint8_t* __restrict__ accept_out,    // (B, N)
+    int N, int M, int D, int64_t s_d1, int64_t s_v1, int64_t s_d2, int64_t s_v2, int qb,
+    int tiles_per_split, float dist_thr, float ratio_thr) {
   using S = Shape<DP, QPT>;
   constexpr int R = S::kRows, NS = S::kStages, ST = S::kStride, U = S::kUnroll;
   __shared__ __align__(16) float raw[NS][R * DP];    // cp.async ring: rows as they lie in d2
@@ -144,6 +167,20 @@ __global__ void __launch_bounds__(kThreads) match_top2_kernel(
   const int slots = qb / QPT;                   // query slots; the block's rows split
   const int slot = tid % slots, lane_r = tid / slots, lanes = kThreads / slots;
   const int q0 = blockIdx.y * qb;               // first query row of the block
+  const int64_t lane = blockIdx.z;
+  d1 += lane * s_d1;
+  v1 += lane * s_v1;
+  d2 += lane * s_d2;
+  v2 += lane * s_v2;
+  best_out += lane * N;
+  idx_out += lane * N;
+  second_out += lane * N;
+  accept_out += lane * N;
+  // block-uniform: every staged tile starts a multiple of 16 bytes (and of
+  // 4 flags) after the lane's start, so the lane's start decides
+  const bool d2_vec = ((uintptr_t)d2 & 15) == 0;
+  const bool v2_word = ((uintptr_t)v2 & 3) == 0;
+  const bool v1_word = ((uintptr_t)v1 & 3) == 0;
 
   const int tiles = (M + R - 1) / R;
   const int t_lo = split * tiles_per_split;
@@ -151,12 +188,12 @@ __global__ void __launch_bounds__(kThreads) match_top2_kernel(
   auto issue = [&](int t) {  // every thread commits one group per call
     if (t < t_hi) {
       const int j0 = t * R, rows = min(R, M - j0), st = (t - t_lo) % NS;
-      copy16(raw[st], d2 + (int64_t)j0 * D, rows * D * 4, tid);
-      copy4(raw_v[st], v2 + j0, rows, tid);
+      copy_rows(raw[st], d2 + (int64_t)j0 * D, rows * D * 4, d2_vec, tid);
+      copy_flags(raw_v[st], v2 + j0, rows, v2_word, tid);
     }
     cp_async_commit();
   };
-  copy4(q_valid, v1 + q0, min(qb, N - q0), tid);  // joins the first tile's group
+  copy_flags(q_valid, v1 + q0, min(qb, N - q0), v1_word, tid);  // joins the first tile's group
 #pragma unroll
   for (int s = 0; s < NS - 1; ++s) issue(t_lo + s);
 
@@ -269,14 +306,22 @@ __global__ void __launch_bounds__(kThreads) match_top2_kernel(
   cluster_barrier();  // no block leaves while another may still read its partials
 }
 
+struct Args {
+  const void *d1, *v1, *d2, *v2;
+  void *best, *idx, *second, *accept;
+  int B, N, M, D;
+  int64_t s_d1, s_v1, s_d2, s_v2;
+  int qb, splits;
+  float dist_thr, ratio_thr;
+};
+
 template <int DP, int QPT>
-cudaError_t launch(const void* d1, const void* v1, const void* d2, const void* v2,
-                   void* best, void* idx, void* second, void* accept, int N, int M, int D,
-                   int qb, int splits, float dist_thr, float ratio_thr, cudaStream_t stream) {
-  const int tiles = (M + Shape<DP, QPT>::kRows - 1) / Shape<DP, QPT>::kRows;
-  const int tiles_per_split = (tiles + splits - 1) / splits;
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  const int tiles = (a.M + Shape<DP, QPT>::kRows - 1) / Shape<DP, QPT>::kRows;
+  const int tiles_per_split = (tiles + a.splits - 1) / a.splits;
+  const int splits = a.splits;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(splits, (N + qb - 1) / qb, 1);
+  cfg.gridDim = dim3(splits, (a.N + a.qb - 1) / a.qb, a.B);
   cfg.blockDim = dim3(kThreads, 1, 1);
   cfg.dynamicSmemBytes = 0;
   cfg.stream = stream;
@@ -287,37 +332,38 @@ cudaError_t launch(const void* d1, const void* v1, const void* d2, const void* v
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, match_top2_kernel<DP, QPT>, (const float*)d1,
-                            (const uint8_t*)v1, (const float*)d2, (const uint8_t*)v2,
-                            (float*)best, (int64_t*)idx, (float*)second, (uint8_t*)accept,
-                            N, M, D, qb, tiles_per_split, dist_thr, ratio_thr);
+  return cudaLaunchKernelEx(&cfg, match_top2_kernel<DP, QPT>, (const float*)a.d1,
+                            (const uint8_t*)a.v1, (const float*)a.d2, (const uint8_t*)a.v2,
+                            (float*)a.best, (int64_t*)a.idx, (float*)a.second,
+                            (uint8_t*)a.accept, a.N, a.M, a.D, a.s_d1, a.s_v1, a.s_d2, a.s_v2,
+                            a.qb, tiles_per_split, a.dist_thr, a.ratio_thr);
 }
 
 }  // namespace
 
 extern "C" int tpuvo_match_top2(
     const void* d1, const void* v1, const void* d2, const void* v2,
-    void* best, void* idx, void* second, void* accept, int N, int M, int D,
+    void* best, void* idx, void* second, void* accept, int B, int N, int M, int D,
+    int64_t s_d1, int64_t s_v1, int64_t s_d2, int64_t s_v2,
     int qb, int qpt, int splits, float dist_thr, float ratio_thr, void* stream) {
-  if (N <= 0) return 0;
+  if (N <= 0 || B <= 0) return 0;
   const int slots = qpt > 0 ? qb / qpt : 0;
   // 4 queries a thread only at D = 10: 4 x 64 padded queries would not fit in registers
   const bool tile_ok = (qpt == 1 || (qpt == 4 && D == 10)) && qb % qpt == 0 && qb <= kMaxQueries &&
                        (slots == 8 || slots == 16 || slots == 32 || slots == 64 || slots == 128);
+  // floats are 4-byte aligned whatever the view; the kernel handles the rest
   if (D < 1 || D > 64 || !tile_ok || splits < 1 || splits > kMaxSplits ||
-      (N + qb - 1) / qb > 65535 || M < 0 || ((uintptr_t)d2 & 15) || ((uintptr_t)v1 & 3) ||
-      ((uintptr_t)v2 & 3))
+      (N + qb - 1) / qb > 65535 || B > 65535 || M < 0 || ((uintptr_t)d2 & 3) ||
+      s_d1 < 0 || s_v1 < 0 || s_d2 < 0 || s_v2 < 0)
     return (int)cudaErrorInvalidValue;
+  const Args a{d1, v1, d2, v2, best, idx, second, accept, B, N, M, D,
+               s_d1, s_v1, s_d2, s_v2, qb, splits, dist_thr, ratio_thr};
   const cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e;
   if (D == 10)
-    e = qpt == 1 ? launch<10, 1>(d1, v1, d2, v2, best, idx, second, accept, N, M, D, qb,
-                                 splits, dist_thr, ratio_thr, s)
-                 : launch<10, 4>(d1, v1, d2, v2, best, idx, second, accept, N, M, D, qb,
-                                 splits, dist_thr, ratio_thr, s);
+    e = qpt == 1 ? launch<10, 1>(a, s) : launch<10, 4>(a, s);
   else
-    e = launch<64, 1>(d1, v1, d2, v2, best, idx, second, accept, N, M, D, qb, splits,
-                      dist_thr, ratio_thr, s);
+    e = launch<64, 1>(a, s);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }

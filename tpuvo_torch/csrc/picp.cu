@@ -32,7 +32,11 @@
 //     takes sincosf;
 //   * the typed results (T, num_inliers int32, chi_inliers, chi_outliers,
 //     iterations int32, converged bool) are written by the kernel itself,
-//     so a call launches nothing else.
+//     so a call launches nothing else;
+//   * each input has its own lane stride (the batched tracker's frames and
+//     maps are lanes of larger tensors; 0 shares one array among all
+//     problems), and an optional (B,) array gives each problem its own
+//     robust threshold (the threshold sweep), else the scalar one.
 // Two runs give the same bits: every sum runs in a fixed order.  Compiled
 // WITHOUT --use_fast_math: the rel-chi stop is knife-edge and approximate
 // sin/cos/sqrt/div would move iteration counts.
@@ -71,20 +75,21 @@ __device__ __forceinline__ float warp_reduce_scatter(float* v, int lane) {
 }
 
 __global__ void __launch_bounds__(kThreads) picp_solve_kernel(
-    const float* __restrict__ world,     // (B, M, 3)
-    const int64_t* __restrict__ idx,     // (B, N) or nullptr (world is per-observation)
-    const float* __restrict__ uv,        // (B, N, 2)
-    const uint8_t* __restrict__ valid,   // (B, N)
+    const float* __restrict__ world,     // (B, M, 3), lane stride lane_w
+    const int64_t* __restrict__ idx,     // (B, N), lane stride lane_i; or nullptr (world is per-observation)
+    const float* __restrict__ uv,        // (B, N, 2), lane stride lane_z
+    const uint8_t* __restrict__ valid,   // (B, N), lane stride lane_v
     const float* __restrict__ T0,        // (B, 4, 4)
+    const float* __restrict__ thr_b,     // (B,) robust thresholds, or nullptr (thr for all)
     float* __restrict__ T_out,           // (B, 4, 4)
     int32_t* __restrict__ n_in_out,      // (B,)
     float* __restrict__ chi_in_out,      // (B,)
     float* __restrict__ chi_out_out,     // (B,)
     int32_t* __restrict__ iters_out,     // (B,)
     uint8_t* __restrict__ conv_out,      // (B,)
-    int N, int M,
+    int N, int M, int64_t lane_w, int64_t lane_i, int64_t lane_z, int64_t lane_v,
     float fx, float fy, float cx, float cy, float width, float height,
-    float thr, float damping, float conv, int max_it, int min_inl,
+    float thr_all, float damping, float conv, int max_it, int min_inl,
     int keep_outliers) {
   extern __shared__ float staged[];            // (kStaged, N): the valid rows, compacted
   __shared__ __align__(16) float part[2][kWarps][32];  // per-warp sums, by round parity
@@ -92,10 +97,11 @@ __global__ void __launch_bounds__(kThreads) picp_solve_kernel(
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int b = blockIdx.x;
-  const float* Wb = world + (int64_t)b * M * 3;
-  const int64_t* Ib = idx ? idx + (int64_t)b * N : nullptr;
-  const float* Zb = uv + (int64_t)b * N * 2;
-  const uint8_t* Vb = valid + (int64_t)b * N;
+  const float* Wb = world + b * lane_w;
+  const int64_t* Ib = idx ? idx + b * lane_i : nullptr;
+  const float* Zb = uv + b * lane_z;
+  const uint8_t* Vb = valid + b * lane_v;
+  const float thr = thr_b ? thr_b[b] : thr_all;
   float* sX0 = staged;
   float* sX1 = staged + N;
   float* sX2 = staged + 2 * N;
@@ -305,12 +311,14 @@ __global__ void __launch_bounds__(kThreads) picp_solve_kernel(
 
 extern "C" int tpuvo_picp_solve(
     const void* world, const void* idx, const void* uv, const void* valid,
-    const void* T0, void* T_out, void* n_in, void* chi_in, void* chi_out,
+    const void* T0, const void* thr_b, void* T_out, void* n_in, void* chi_in, void* chi_out,
     void* iters, void* converged, int B, int N, int M,
+    int64_t lane_w, int64_t lane_i, int64_t lane_z, int64_t lane_v,
     float fx, float fy, float cx, float cy, float width, float height,
     float thr, float damping, float conv, int max_it, int min_inl,
     int keep_outliers, void* stream) {
   if (B <= 0) return 0;
+  if (lane_w < 0 || lane_i < 0 || lane_z < 0 || lane_v < 0) return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(float) * kStaged * (size_t)N;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
@@ -319,9 +327,9 @@ extern "C" int tpuvo_picp_solve(
   }
   picp_solve_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
       (const float*)world, (const int64_t*)idx, (const float*)uv,
-      (const uint8_t*)valid, (const float*)T0, (float*)T_out, (int32_t*)n_in,
-      (float*)chi_in, (float*)chi_out, (int32_t*)iters, (uint8_t*)converged,
-      N, M, fx, fy, cx, cy, width, height, thr, damping, conv, max_it,
+      (const uint8_t*)valid, (const float*)T0, (const float*)thr_b, (float*)T_out,
+      (int32_t*)n_in, (float*)chi_in, (float*)chi_out, (int32_t*)iters, (uint8_t*)converged,
+      N, M, lane_w, lane_i, lane_z, lane_v, fx, fy, cx, cy, width, height, thr, damping, conv, max_it,
       min_inl, keep_outliers);
   return (int)cudaGetLastError();
 }

@@ -1,6 +1,10 @@
 """VO state: a NamedTuple of fixed-capacity tensors (twin of
 ``tpuvo/engine/state.py``), plus converters to and from the numpy form
 of either package's state — they let both packages step from one state.
+
+The batched tracker gives every field a leading lane axis B (pose (B, 4,
+4), map_xyz (B, C, 3), map_count (B,), ...): the layout of a ``jax.vmap``
+of the JAX twin, so its batched state converts straight across.
 """
 
 from __future__ import annotations
@@ -34,20 +38,24 @@ _DTYPES = {
 }
 
 
-def empty_state(cfg: EngineConfig, device="cpu") -> VOState:
+def empty_state(cfg: EngineConfig, device="cpu", lanes: int | None = None) -> VOState:
+    """The state before the bootstrap; ``lanes``: a leading lane axis of
+    that size (None: no lane axis)."""
     C, D = cfg.map_capacity, cfg.desc_dim
+    B = () if lanes is None else (lanes,)
     kw = dict(device=device)
+    eye = torch.eye(4, dtype=torch.float32, **kw).expand(B + (4, 4))
     return VOState(
-        pose=torch.eye(4, dtype=torch.float32, **kw),
-        vel=torch.eye(4, dtype=torch.float32, **kw),
-        map_xyz=torch.zeros((C, 3), dtype=torch.float32, **kw),
-        map_desc=torch.zeros((C, D), dtype=torch.float32, **kw),
-        map_id_real=torch.full((C,), -1, dtype=torch.int32, **kw),
-        map_id_meas=torch.full((C,), -1, dtype=torch.int32, **kw),
-        map_valid=torch.zeros((C,), dtype=torch.bool, **kw),
-        map_count=torch.zeros((), dtype=torch.int32, **kw),
-        map_last_seen=torch.zeros((C,), dtype=torch.int32, **kw),
-        frame_idx=torch.zeros((), dtype=torch.int32, **kw),
+        pose=eye.clone(),
+        vel=eye.clone(),
+        map_xyz=torch.zeros(B + (C, 3), dtype=torch.float32, **kw),
+        map_desc=torch.zeros(B + (C, D), dtype=torch.float32, **kw),
+        map_id_real=torch.full(B + (C,), -1, dtype=torch.int32, **kw),
+        map_id_meas=torch.full(B + (C,), -1, dtype=torch.int32, **kw),
+        map_valid=torch.zeros(B + (C,), dtype=torch.bool, **kw),
+        map_count=torch.zeros(B, dtype=torch.int32, **kw),
+        map_last_seen=torch.zeros(B + (C,), dtype=torch.int32, **kw),
+        frame_idx=torch.zeros(B, dtype=torch.int32, **kw),
     )
 
 
@@ -76,7 +84,9 @@ def state_to_numpy(state: VOState) -> dict:
 
 
 class FrameLog(NamedTuple):
-    """Per-frame diagnostics (the reference's stdout narration, structured)."""
+    """Per-frame diagnostics (the reference's stdout narration, structured);
+    each field gains the state's lane axis in front, and ``scan_tracker``
+    stacks frames after it."""
 
     pose: torch.Tensor           # (4, 4) camera-in-world after tracking
     num_inliers: torch.Tensor    # PICP inliers

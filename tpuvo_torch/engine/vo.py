@@ -18,6 +18,16 @@ makes no host round-trip: no ``.item()``, no ``bool(tensor)``, no
 boolean-mask indexing — map growth and candidate compaction are
 ``index_copy_`` scatters into a spare dump row.  (The plain PICP loop
 checks its done flags on the host once per GN round.)
+
+Lanes: ``bootstrap``, ``track_step``, ``scan_tracker`` and ``full_run`` take
+an optional leading lane axis B — B distinct sequences tracked together,
+each with its own map (the twin of ``jax.vmap`` over the JAX package's
+functions, bench.py:236-239).  One body serves both forms: every op indexes
+from the right (``...``), and the per-lane scatters flatten the lanes with
+a row offset per lane.  Without a lane axis the body runs the single
+sequence's own ops (2-D products, no offsets), so a lane-free call gives
+the bits it gave before lanes existed.  A step of B lanes launches each
+kernel once for all of them.
 """
 
 from __future__ import annotations
@@ -26,6 +36,7 @@ import functools
 import math
 from typing import NamedTuple, Tuple
 
+import numpy as np
 import torch
 
 from tpuvo_torch.config import EngineConfig
@@ -36,7 +47,8 @@ from tpuvo_torch.ops.match import match_descriptors, match_descriptors_pair
 
 
 class Frame(NamedTuple):
-    """One frame's padded observations (a leading frame axis when stacked)."""
+    """One frame's padded observations: (N, ...) per field, with optional
+    leading lane (B) and frame (F) axes, lanes first."""
 
     uv: torch.Tensor       # (N, 2) float32
     desc: torch.Tensor     # (N, D) float32
@@ -57,17 +69,23 @@ def _check_device(device) -> None:
                            "(pass device='cpu' to run on the CPU)")
 
 
+_FIELDS = (("uv", torch.float32), ("desc", torch.float32), ("id_meas", torch.int32),
+           ("id_real", torch.int32), ("valid", torch.bool))
+
+
 def frames_of(seq, lo: int, hi: int, device="cuda") -> Frame:
     """Frames [lo, hi) of a FrameObservations as one stacked Frame on
     ``device`` (the card by default)."""
     _check_device(device)
-    return Frame(
-        _tensor(seq.uv[lo:hi], torch.float32, device),
-        _tensor(seq.desc[lo:hi], torch.float32, device),
-        _tensor(seq.id_meas[lo:hi], torch.int32, device),
-        _tensor(seq.id_real[lo:hi], torch.int32, device),
-        _tensor(seq.valid[lo:hi], torch.bool, device),
-    )
+    return Frame(*(_tensor(getattr(seq, k)[lo:hi], dt, device) for k, dt in _FIELDS))
+
+
+def lanes_of(seqs, device="cuda") -> Frame:
+    """B FrameObservations of equal shape as one lane-batched Frame
+    (B, F, N, ...) on ``device``: the input of ``run_batch``."""
+    _check_device(device)
+    return Frame(*(_tensor(np.stack([getattr(s, k) for s in seqs]), dt, device)
+                   for k, dt in _FIELDS))
 
 
 def frame_of(seq, i: int, device="cuda") -> Frame:
@@ -75,8 +93,13 @@ def frame_of(seq, i: int, device="cuda") -> Frame:
 
 
 def frame_at(frames: Frame, i: int) -> Frame:
-    """Frame i of a stacked Frame (views, no copy)."""
+    """Frame i of a stacked Frame (F, ...) (views, no copy)."""
     return Frame(*(x[i] for x in frames))
+
+
+def lane_frame_at(frames: Frame, i: int) -> Frame:
+    """Frame i of every lane of a lane-batched Frame (B, F, ...) (views)."""
+    return Frame(*(x[:, i] for x in frames))
 
 
 @functools.lru_cache(maxsize=None)
@@ -85,43 +108,87 @@ def _K(cfg: EngineConfig, device: torch.device):
     return torch.as_tensor(cfg.K(), device=device)
 
 
+# ------------------------------------------------------------- lane axis --
+# A lane axis, where there is one, is the single leading axis of every state
+# field and frame: (B, C, ...) maps, (B, N, ...) frames.  Row scatters into
+# (lanes..., W, ...) tensors go through their (n_lanes·W + 1, ...)
+# flattening, whose last row is a dump for dropped entries.
+
+
+@functools.lru_cache(maxsize=None)
+def _lane_base(lanes: int, width: int, device: torch.device):
+    # (B, 1) row offsets b·width, made once per shape and device
+    return (torch.arange(lanes, device=device) * width)[:, None]
+
+
+def _flat_rows(local, width: int):
+    """Lane-local row indices (..., n) into a (..., width, ...) tensor, where
+    ``width`` marks a dropped entry, as indices (n_lanes·n,) into its
+    flattening whose last row (n_lanes·width) is the dump.  Without lanes,
+    or with one, the local index is the flat one."""
+    if local.dim() == 1 or local.shape[0] == 1:
+        return local.reshape(-1)
+    B = local.shape[0]
+    flat = torch.where(local < width, local + _lane_base(B, width, local.device), B * width)
+    return flat.reshape(-1)
+
+
+def _scatter_rows(old, flat, vals, n_lane_axes: int):
+    """A copy of old (lanes..., W, ...) with row flat[k] of its flattening
+    set to the k-th row of vals (lanes..., n, ...) flattened alike (see
+    _flat_rows): ONE ``index_copy_`` for every lane, into a dump row that is
+    then cut off."""
+    rows = old.flatten(0, n_lane_axes)
+    ext = torch.cat([rows, rows[:1]], 0)  # the dump
+    ext.index_copy_(0, flat, vals.flatten(0, n_lane_axes).to(old.dtype))
+    return ext[:rows.shape[0]].view(old.shape)
+
+
+def _take_rows(x, idx):
+    """x[..., idx[..., i], :] for x (..., M, k) and idx (..., n): (..., n, k)."""
+    return torch.gather(x, -2, idx[..., None].expand(idx.shape + x.shape[-1:]))
+
+
 def _append_to_map(state: VOState, xyz, desc, id_real, id_meas, new_mask,
                    reuse_slots: bool = False):
-    """Masked append preserving candidate order (push_back semantics).
+    """Masked append preserving candidate order (push_back semantics), per
+    lane.
 
     reuse_slots=False: candidates land in sequential slots from
     ``map_count``.  True (eviction on): candidates fill the free slots
     (``~map_valid``) in ascending slot order.  Candidates past capacity are
-    dropped.  The scatter is ``index_copy_`` into the map plus one dump row
-    (index C) that takes every dropped candidate and is then cut off — the
-    same slots in the same order as the JAX twin's one-hot matmul.
+    dropped.  The scatter is ``index_copy_`` into the lanes' maps flattened
+    with one dump row that takes every dropped candidate and is then cut
+    off — the same slots in the same order as the JAX twin's one-hot
+    matmul.
 
-    Returns (state, n_added, cand_slots (N,) — the slot each candidate
-    landed in, C when dropped — and ok (N,) bool, actually inserted).
+    Returns (state, n_added, cand_slots (..., N) — the slot each candidate
+    landed in, C when dropped — and ok (..., N) bool, actually inserted).
     """
-    C = state.map_xyz.shape[0]
+    lanes, C = state.map_valid.shape[:-1], state.map_valid.shape[-1]
+    nl = len(lanes)
     dev = xyz.device
-    offs = torch.cumsum(new_mask.to(torch.int32), 0) - 1  # position among kept
+    offs = torch.cumsum(new_mask.to(torch.int32), -1) - 1  # position among kept
     if reuse_slots:
         free = ~state.map_valid
-        rank = torch.cumsum(free.to(torch.int64), 0) - 1
-        n_free = torch.sum(free)
+        rank = torch.cumsum(free.to(torch.int64), -1) - 1
+        n_free = torch.sum(free, -1, keepdim=True)
         ok = new_mask & (offs < n_free)
-        # slot_of_rank[r] = the free slot of rank r (non-free slots -> dump)
-        slot_of_rank = torch.full((C + 1,), C, dtype=torch.int64, device=dev)
-        slot_of_rank.index_copy_(0, torch.where(free, rank, C),
-                                 torch.arange(C, dtype=torch.int64, device=dev))
-        cand_slots = torch.where(ok, slot_of_rank[torch.clamp(offs, min=0).long()], C)
+        # slot_of_rank[..., r] = the lane's free slot of rank r (non-free slots -> dump)
+        slots = torch.arange(C, dtype=torch.int64, device=dev)
+        slot_of_rank = _scatter_rows(torch.full(lanes + (C,), C, dtype=torch.int64, device=dev),
+                                     _flat_rows(torch.where(free, rank, C), C),
+                                     slots.expand(lanes + (C,)), nl)
+        cand_slots = torch.where(ok, torch.gather(slot_of_rank, -1,
+                                                  torch.clamp(offs, min=0).long()), C)
     else:
-        pos = state.map_count + offs
+        pos = state.map_count[..., None] + offs
         ok = new_mask & (pos < C)
         cand_slots = torch.where(ok, pos, C).long()
+    flat = _flat_rows(cand_slots, C)
+    put = lambda old, vals: _scatter_rows(old, flat, vals, nl)
 
-    def put(old, vals):
-        ext = torch.cat([old, old[:1]], 0)  # row C: the dump
-        return ext.index_copy_(0, cand_slots, vals.to(old.dtype))[:C]
-
-    hit = put(torch.zeros(C, dtype=torch.bool, device=dev), ok)
+    hit = put(torch.zeros(lanes + (C,), dtype=torch.bool, device=dev), ok)
     map_valid = state.map_valid | hit
     return (
         state._replace(
@@ -130,11 +197,11 @@ def _append_to_map(state: VOState, xyz, desc, id_real, id_meas, new_mask,
             map_id_real=put(state.map_id_real, id_real),
             map_id_meas=put(state.map_id_meas, id_meas),
             map_valid=map_valid,
-            map_count=torch.sum(map_valid).to(torch.int32),
+            map_count=torch.sum(map_valid, -1).to(torch.int32),
             # the founding observation counts as "seen now" for eviction
-            map_last_seen=torch.where(hit, state.frame_idx, state.map_last_seen),
+            map_last_seen=torch.where(hit, state.frame_idx[..., None], state.map_last_seen),
         ),
-        torch.sum(ok).to(torch.int32),
+        torch.sum(ok, -1).to(torch.int32),
         cand_slots,
         ok,
     )
@@ -146,8 +213,9 @@ def bootstrap(generator, f0: Frame, f1: Frame, cfg: EngineConfig,
     and diagnostics including the recovered camera-1 pose T_boot.
 
     generator: the torch.Generator of the RANSAC draws (see
-    ``make_generator``); sample_idx: optional (H, 8) indices that replace
-    the draw.
+    ``make_generator``); the lanes draw from it together, each its own
+    hypotheses.  sample_idx: optional ((B,) H, 8) indices that replace the
+    draw.
     """
     dev = f0.uv.device
     K = _K(cfg, dev)
@@ -156,7 +224,7 @@ def bootstrap(generator, f0: Frame, f1: Frame, cfg: EngineConfig,
         cfg.matcher.distance_threshold, cfg.matcher.ratio_threshold,
         cfg.matcher.method,
     )
-    uv2 = f1.uv[res.idx]
+    uv2 = _take_rows(f1.uv, res.idx)
     T_boot, rres, _ = twoview.bootstrap_pose(
         generator, K, f0.uv, uv2, res.valid, cfg.ransac, sample_idx)
     # triangulate ALL matches (no inlier mask — the reference's quirk)
@@ -165,10 +233,11 @@ def bootstrap(generator, f0: Frame, f1: Frame, cfg: EngineConfig,
         refine_iterations=cfg.triangulation_refine_iters,
     )
     state, n_added, _, _ = _append_to_map(
-        empty_state(cfg, dev), pts, f0.desc, f0.id_real, f0.id_meas, res.valid)
+        empty_state(cfg, dev, lanes=f0.uv.shape[0] if f0.uv.dim() == 3 else None), pts,
+        f0.desc, f0.id_real, f0.id_meas, res.valid)
     diag = {
         "T_boot": T_boot,
-        "n_matches": torch.sum(res.valid),
+        "n_matches": torch.sum(res.valid, -1),
         "n_ransac_inliers": rres.num_inliers,
         "n_map_points": n_added,
     }
@@ -177,12 +246,18 @@ def bootstrap(generator, f0: Frame, f1: Frame, cfg: EngineConfig,
 
 def track_step(state: VOState, curr: Frame, nxt: Frame, cfg: EngineConfig,
                kernel_threshold=None, return_matches: bool = False):
-    """One tracking iteration.  Returns (state, FrameLog), plus
-    ``(m_map.idx, m_map.valid, new_slots, new_uv, new_valid)`` when
-    return_matches (the frame's map observations and its new landmarks)."""
+    """One tracking iteration of every lane.  Returns (state, FrameLog),
+    plus ``(m_map.idx, m_map.valid, new_slots, new_uv, new_valid)`` when
+    return_matches (the frame's map observations and its new landmarks).
+
+    kernel_threshold: optional robust threshold overriding
+    ``cfg.picp.kernel_threshold`` — a float, or one per lane ((B,) tensor;
+    the threshold sweep)."""
     dev = state.pose.device
     K = _K(cfg, dev)
     mc = cfg.matcher
+    lanes, C = state.map_valid.shape[:-1], state.map_valid.shape[-1]
+    n_lanes = math.prod(lanes)
     state = state._replace(frame_idx=state.frame_idx + 1)
 
     # --- 2D-3D: next frame vs map (and, when fused, the 2D-2D match) -----
@@ -200,15 +275,16 @@ def track_step(state: VOState, curr: Frame, nxt: Frame, cfg: EngineConfig,
     else:
         m_map = match_descriptors(nxt.desc, nxt.valid, state.map_desc, state.map_valid,
                                   mc.distance_threshold, mc.ratio_threshold, mc.method)
-    n_map_correct = torch.sum(m_map.valid & (nxt.id_real == state.map_id_real[m_map.idx]))
+    n_map_correct = torch.sum(
+        m_map.valid & (nxt.id_real == torch.gather(state.map_id_real, -1, m_map.idx)), -1)
 
     # --- landmark lifecycle: mark matched slots seen, evict stale ones ---
     if cfg.map_evict_age > 0:
-        C = state.map_xyz.shape[0]
-        hits = torch.zeros(C, dtype=torch.int32, device=dev).index_add_(
-            0, m_map.idx, m_map.valid.to(torch.int32))
-        last_seen = torch.where(hits > 0, state.frame_idx, state.map_last_seen)
-        stale = state.map_valid & (state.frame_idx - last_seen > cfg.map_evict_age)
+        hits = torch.zeros(n_lanes * C, dtype=torch.int32, device=dev).index_add_(
+            0, _flat_rows(m_map.idx, C), m_map.valid.reshape(-1).to(torch.int32)
+        ).view(lanes + (C,))
+        last_seen = torch.where(hits > 0, state.frame_idx[..., None], state.map_last_seen)
+        stale = state.map_valid & (state.frame_idx[..., None] - last_seen > cfg.map_evict_age)
         state = state._replace(map_last_seen=last_seen, map_valid=state.map_valid & ~stale)
 
     # --- PICP from the previous pose (or a constant-velocity prediction) --
@@ -221,7 +297,10 @@ def track_step(state: VOState, curr: Frame, nxt: Frame, cfg: EngineConfig,
     T_init = lie.inv_se3(T_prev)  # world-in-camera initial guess
     solver_args = (state.map_xyz, nxt.uv, m_map.idx, m_map.valid, cfg.width, cfg.height,
                    cfg.picp)
-    if cfg.picp.backend == "pallas" and kernel_threshold is None:
+    # the kernel takes a threshold per lane; it has no annealing schedule,
+    # which the plain solver runs under a threshold override, as in JAX
+    if cfg.picp.backend == "pallas" and not (cfg.picp.annealed_kernel
+                                             and kernel_threshold is not None):
         if cfg.picp.annealed_kernel:
             raise ValueError(
                 "picp.backend='pallas' does not support "
@@ -229,7 +308,7 @@ def track_step(state: VOState, curr: Frame, nxt: Frame, cfg: EngineConfig,
                 "annealed schedule")
         from tpuvo_torch.ops.cuda.picp_kernel import solve_cuda
 
-        sol = solve_cuda(cfg.K(), T_init, *solver_args)
+        sol = solve_cuda(cfg.K(), T_init, *solver_args, kernel_threshold)
     elif cfg.picp.unrolled_rounds > 0:
         sol = picp.solve_unrolled(K, T_init, *solver_args, kernel_threshold,
                                   rounds=cfg.picp.unrolled_rounds)
@@ -237,9 +316,9 @@ def track_step(state: VOState, curr: Frame, nxt: Frame, cfg: EngineConfig,
         sol = picp.solve(K, T_init, *solver_args, kernel_threshold)
     new_pose = lie.inv_se3(sol.T)  # camera-in-world
     # keep the previous pose on match starvation or a non-finite solve
-    n_matches = torch.sum(m_map.valid)
-    healthy = (n_matches >= cfg.picp.min_matches_reuse_pose) & torch.all(
-        torch.isfinite(new_pose))
+    n_matches = torch.sum(m_map.valid, -1)
+    healthy = ((n_matches >= cfg.picp.min_matches_reuse_pose)
+               & torch.all(torch.isfinite(new_pose).flatten(-2), -1))[..., None, None]
     new_pose = torch.where(healthy, new_pose, state.pose)
     wic_prev = lie.inv_se3(state.pose) if cfg.motion_model_init else T_init
     wic_new = torch.where(healthy, sol.T, wic_prev)
@@ -248,19 +327,21 @@ def track_step(state: VOState, curr: Frame, nxt: Frame, cfg: EngineConfig,
     if m_img is None:
         m_img = match_descriptors(curr.desc, curr.valid, nxt.desc, nxt.valid,
                                   mc.distance_threshold, mc.ratio_threshold, mc.method)
-    is_new = m_img.valid & ~m_map.valid[m_img.idx]
+    is_new = m_img.valid & ~torch.gather(m_map.valid, -1, m_img.idx)
 
     # --- compact the candidates (order kept) to Kc slots, triangulate ------
     Kc = cfg.max_new_landmarks_per_frame
-    offs_new = torch.cumsum(is_new.to(torch.int32), 0) - 1
-    slot = torch.where(is_new & (offs_new < Kc), offs_new, Kc).long()
+    offs_new = torch.cumsum(is_new.to(torch.int32), -1) - 1
+    slot = _flat_rows(torch.where(is_new & (offs_new < Kc), offs_new, Kc).long(), Kc)
 
     def compact(x):
-        out = torch.zeros((Kc + 1,) + x.shape[1:], dtype=x.dtype, device=dev)
-        return out.index_copy_(0, slot, x)[:Kc]  # row Kc: the dump
+        rest = x.shape[len(lanes) + 1:]
+        out = torch.zeros((n_lanes * Kc + 1,) + rest, dtype=x.dtype, device=dev)
+        out.index_copy_(0, slot, x.flatten(0, len(lanes)))
+        return out[:n_lanes * Kc].view(lanes + (Kc,) + rest)  # the last row: the dump
 
     uv1_c = compact(curr.uv)
-    uv2_c = compact(nxt.uv[m_img.idx])
+    uv2_c = compact(_take_rows(nxt.uv, m_img.idx))
     desc_c = compact(curr.desc)
     idr_c = compact(curr.id_real)
     idm_c = compact(curr.id_meas)
@@ -278,8 +359,8 @@ def track_step(state: VOState, curr: Frame, nxt: Frame, cfg: EngineConfig,
         e2 = torch.sum((uv2_re - uv2_c) ** 2, -1)
         # parallax between the two viewing rays (low-parallax depth is
         # unobservable and poisons later pose solves)
-        r1 = pts - state.pose[:3, 3][None, :]
-        r2 = pts - new_pose[:3, 3][None, :]
+        r1 = pts - state.pose[..., None, :3, 3]
+        r2 = pts - new_pose[..., None, :3, 3]
         cosang = torch.sum(r1 * r2, -1) / torch.clamp(
             torch.linalg.norm(r1, dim=-1) * torch.linalg.norm(r2, dim=-1), min=1e-20)
         parallax_ok = cosang < math.cos(cfg.landmark_min_parallax_rad)
@@ -301,37 +382,42 @@ def track_step(state: VOState, curr: Frame, nxt: Frame, cfg: EngineConfig,
         converged=sol.converged,
         n_map_matches=n_matches,
         n_map_correct=n_map_correct,
-        n_frame_matches=torch.sum(m_img.valid),
+        n_frame_matches=torch.sum(m_img.valid, -1),
         n_new_points=n_added,
         map_count=state2.map_count,
-        n_dropped_candidates=torch.sum(is_new & (offs_new >= Kc)).to(torch.int32),
-        n_dropped_overflow=(torch.sum(keep) - n_added).to(torch.int32),
+        n_dropped_candidates=torch.sum(is_new & (offs_new >= Kc), -1).to(torch.int32),
+        n_dropped_overflow=(torch.sum(keep, -1) - n_added).to(torch.int32),
     )
     if return_matches:
         return state2, log, (m_map.idx, m_map.valid, cand_slots, uv2_c, cand_ok)
     return state2, log
 
 
-def _stack_logs(logs, log_stats: bool) -> FrameLog:
-    poses = torch.stack([lg.pose for lg in logs])
+def _stack_logs(logs, log_stats: bool, dim: int = 0) -> FrameLog:
+    """Per-frame logs stacked along a frame axis at ``dim`` (1 after a
+    lane axis)."""
+    poses = torch.stack([lg.pose for lg in logs], dim)
     if not log_stats:  # poses only; the stats are zero-filled, as in JAX
-        z = torch.zeros(poses.shape[0], device=poses.device)
+        z = torch.zeros(poses.shape[:dim + 1], device=poses.device)
         zi = z.to(torch.int32)
         return FrameLog(poses, zi, z, zi, z > 0.5, zi, zi, zi, zi, zi, zi, zi)
-    return FrameLog(poses, *(torch.stack([getattr(lg, f) for lg in logs])
+    return FrameLog(poses, *(torch.stack([getattr(lg, f) for lg in logs], dim)
                              for f in FrameLog._fields[1:]))
 
 
 def scan_tracker(state: VOState, frames_curr: Frame, frames_next: Frame,
                  cfg: EngineConfig, kernel_threshold=None):
-    """The full-sequence tracker: ``track_step`` over stacked frames.
-    Returns (final state, FrameLog with a leading frame axis)."""
+    """The full-sequence tracker: ``track_step`` over stacked frames
+    ((B,) F, N, ...).  Returns (final state, FrameLog with a frame axis
+    after the lane axis, if any)."""
+    axis = state.pose.dim() - 2  # the frame axis: after the lane axis
     logs = []
-    for i in range(frames_curr.uv.shape[0]):
-        state, log = track_step(state, frame_at(frames_curr, i), frame_at(frames_next, i),
-                                cfg, kernel_threshold)
+    for i in range(frames_curr.uv.shape[axis]):
+        state, log = track_step(state, Frame(*(x.select(axis, i) for x in frames_curr)),
+                                Frame(*(x.select(axis, i) for x in frames_next)), cfg,
+                                kernel_threshold)
         logs.append(log)
-    return state, _stack_logs(logs, cfg.log_stats)
+    return state, _stack_logs(logs, cfg.log_stats, dim=axis)
 
 
 def full_run(generator, f0: Frame, f1: Frame, frames_curr: Frame,
@@ -363,6 +449,53 @@ def run_sequence(seq, cfg: EngineConfig | None = None, seed: int = 42,
     state, logs = scan_tracker(state, curr, nxt, cfg)
     eye = torch.eye(4, dtype=torch.float32, device=logs.pose.device)[None]
     return state, logs, torch.cat([eye, logs.pose], 0), diag
+
+
+def run_batch(frames: Frame, cfg: EngineConfig | None = None, seed: int = 42,
+              sample_idx=None):
+    """End-to-end VO over B distinct sequences at once: a lane-batched Frame
+    (B, F, N, ...) (see ``lanes_of``) on its device, each lane with its
+    own RANSAC draw.  The twin of bench.py's throughput mode (the vmapped
+    bootstrap and scan_tracker).  Returns (final state, logs, poses (B, F,
+    4, 4) camera-in-world incl. the identity first pose, diag), each with a
+    leading lane axis."""
+    cfg = cfg or EngineConfig()
+    state, diag = bootstrap(make_generator(seed), lane_frame_at(frames, 0),
+                            lane_frame_at(frames, 1), cfg, sample_idx)
+    curr = Frame(*(x[:, :-1] for x in frames))
+    nxt = Frame(*(x[:, 1:] for x in frames))
+    state, logs = scan_tracker(state, curr, nxt, cfg)
+    B = frames.uv.shape[0]
+    eye = torch.eye(4, dtype=torch.float32, device=logs.pose.device).expand(B, 1, 4, 4)
+    return state, logs, torch.cat([eye, logs.pose], 1), diag
+
+
+def run_threshold_sweep(seq, thresholds, cfg: EngineConfig | None = None, seed: int = 42,
+                        device="cuda", sample_idx=None):
+    """The robust-threshold sweep (BASELINE.json config 2; twin of the JAX
+    package's ``run_threshold_sweep``): the whole tracker over one
+    sequence with a lane per threshold, e.g. [1000, 3000, 10000] as three
+    lanes of one batched run.  The bootstrap does not depend on the
+    threshold: it runs once and every lane starts from it.  With
+    ``picp.backend="pallas"`` each step is one kernel launch for all lanes,
+    each with its own threshold.  Returns (states, logs, poses (B, F, 4,
+    4)) with a leading threshold axis."""
+    cfg = cfg or EngineConfig()
+    F = seq.uv.shape[0]
+    frames = frames_of(seq, 0, F, device)
+    thr = torch.as_tensor(thresholds, dtype=torch.float32, device=device)
+    B = thr.shape[0]
+    state, _ = bootstrap(make_generator(seed), frame_at(frames, 0), frame_at(frames, 1), cfg,
+                         sample_idx)
+    # one copy of the shared bootstrap per lane (each lane's map then grows
+    # on its own); the frames are shared views (lane stride 0)
+    states = VOState(*(x.expand((B,) + x.shape).contiguous() for x in state))
+    lanes = lambda fr: Frame(*(x.expand((B,) + x.shape) for x in fr))
+    states, logs = scan_tracker(states, lanes(Frame(*(x[:F - 1] for x in frames))),
+                                lanes(Frame(*(x[1:] for x in frames))), cfg,
+                                kernel_threshold=thr)
+    eye = torch.eye(4, dtype=torch.float32, device=logs.pose.device).expand(B, 1, 4, 4)
+    return states, logs, torch.cat([eye, logs.pose], 1)
 
 
 class OnlineVO:

@@ -26,15 +26,17 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "tpuvo_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _SIGNATURES = {
-    # world, idx, uv, valid, T0, then the outputs T, num_inliers, chi_inliers,
-    # chi_outliers, iterations, converged; B, N, M, fx, fy, cx, cy, width,
+    # world, idx, uv, valid, T0, thresholds (or NULL), then the outputs T,
+    # num_inliers, chi_inliers, chi_outliers, iterations, converged; B, N, M,
+    # the lane strides of world, idx, uv, valid; fx, fy, cx, cy, width,
     # height, thr, damping, conv, max_it, min_inl, keep_outliers, stream
-    "tpuvo_picp_solve": [_P] * 11 + [_I] * 3 + [_F] * 9 + [_I] * 3 + [_P],
-    # d1, v1, d2, v2, best, idx, second, accept, N, M, D, query tile,
-    # queries per thread, map splits, dist_thr, ratio_thr, stream
-    "tpuvo_match_top2": [_P] * 8 + [_I] * 6 + [_F] * 2 + [_P],
+    "tpuvo_picp_solve": [_P] * 12 + [_I] * 3 + [_L] * 4 + [_F] * 9 + [_I] * 3 + [_P],
+    # d1, v1, d2, v2, best, idx, second, accept, B (lanes), N, M, D, the
+    # lane strides of d1, v1, d2, v2, query tile, queries per thread, map
+    # splits, dist_thr, ratio_thr, stream
+    "tpuvo_match_top2": [_P] * 8 + [_I] * 4 + [_L] * 4 + [_I] * 3 + [_F] * 2 + [_P],
 }
 
 _lib = None
@@ -98,7 +100,7 @@ def check(err: int, name: str) -> None:
 
 
 def check_device(*tensors) -> None:
-    """Every kernel argument must be a contiguous tensor on the current device."""
+    """Every kernel argument must be a tensor on the current device."""
     import torch
 
     for t in tensors:
@@ -106,5 +108,13 @@ def check_device(*tensors) -> None:
             continue
         if not t.is_cuda or t.device.index != torch.cuda.current_device():
             raise ValueError(f"kernel argument on {t.device}, expected the current CUDA device")
-        if not t.is_contiguous():
-            raise ValueError("kernel argument must be contiguous")
+
+
+def lanes(x):
+    """A kernel argument with a leading lane axis as (tensor, lane stride in
+    elements): x itself when each lane is contiguous (a lane of a larger
+    tensor, or one lane shared by all at stride 0), else a contiguous copy."""
+    if x.shape[0] > 1 and x[0].is_contiguous():
+        return x, x.stride(0)
+    x = x if x[0].is_contiguous() else x.contiguous()
+    return x, x[0].numel()

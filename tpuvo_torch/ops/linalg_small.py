@@ -115,11 +115,11 @@ def smallest_eigvec_inverse_iteration(A, iterations: int = 8, shift: float = 1e-
 
 
 def solve_dlt3(A):
-    """Inhomogeneous DLT: fix w = 1 in the (N, 4, 4) rows A·(X, 1) ≈ 0 and
-    least-squares solve for X.  Returns (X (N, 3), det (N,) of the 3x3
-    normal matrix — ~0 flags a near-infinity point)."""
+    """Inhomogeneous DLT: fix w = 1 in the (..., N, 4, 4) rows A·(X, 1) ≈ 0
+    and least-squares solve for X.  Returns (X (..., N, 3), det (..., N) of
+    the 3x3 normal matrix — ~0 flags a near-infinity point)."""
     A3 = A[..., :3]
     a4 = A[..., 3]
-    N_mat = torch.einsum("nki,nkj->nij", A3, A3)
-    rhs = -torch.einsum("nki,nk->ni", A3, a4)
+    N_mat = torch.einsum("...nki,...nkj->...nij", A3, A3)
+    rhs = -torch.einsum("...nki,...nk->...ni", A3, a4)
     return solve3(N_mat, rhs), det3(N_mat)

@@ -4,7 +4,10 @@
 For every descriptor in set1, the best and second-best squared-L2 distance
 over the valid rows of set2; accept iff ``best < distance_threshold`` and
 ``best/second < ratio_threshold``.  The result is a per-row index and
-validity mask, never a dynamic-size list.
+validity mask, never a dynamic-size list.  Every function takes optional
+leading lane axes: (..., N, D) queries against (..., M, D) targets, one
+target set per lane (the batched tracker matches each lane against its own
+map).
 
 Tie rule (the reference's strict ``<`` scan): the FIRST index attaining the
 minimum wins — ``torch.argmin`` returns the first occurrence — and a
@@ -23,10 +26,10 @@ INF = float("inf")
 class MatchResult(NamedTuple):
     """Per-row matching outcome.
 
-    idx:    (N,) int64 — index into set2 of the best match (garbage when invalid)
-    valid:  (N,) bool — passed both threshold and ratio tests
-    best:   (N,) float32 — best squared-L2 distance
-    second: (N,) float32 — second-best squared-L2 distance
+    idx:    (..., N) int64 — index into set2 of the best match (garbage when invalid)
+    valid:  (..., N) bool — passed both threshold and ratio tests
+    best:   (..., N) float32 — best squared-L2 distance
+    second: (..., N) float32 — second-best squared-L2 distance
     """
 
     idx: torch.Tensor
@@ -36,7 +39,7 @@ class MatchResult(NamedTuple):
 
 
 def descriptor_distances(desc1, desc2, method: str = "direct"):
-    """(N, D) x (M, D) -> (N, M) squared-L2 distance matrix.
+    """(..., N, D) x (..., M, D) -> (..., N, M) squared-L2 distance matrix.
 
     ``direct`` expands the difference per pair; ``mxu`` uses
     |a|^2 + |b|^2 - 2ab with the cross term as one fp32 matmul;
@@ -46,24 +49,25 @@ def descriptor_distances(desc1, desc2, method: str = "direct"):
     """
     if method in ("mxu", "mxu_bf16"):
         n1 = torch.sum(desc1 * desc1, -1, keepdim=True)
-        n2 = torch.sum(desc2 * desc2, -1, keepdim=True).T
+        n2 = torch.sum(desc2 * desc2, -1).unsqueeze(-2)
         if method == "mxu_bf16":
-            cross = desc1.bfloat16().float() @ desc2.bfloat16().float().T
+            cross = desc1.bfloat16().float() @ desc2.bfloat16().float().mT
         else:
-            cross = desc1 @ desc2.T
+            cross = desc1 @ desc2.mT
         return n1 + n2 - 2.0 * cross
-    diff = desc1[:, None, :] - desc2[None, :, :]
+    diff = desc1[..., :, None, :] - desc2[..., None, :, :]
     return torch.sum(diff * diff, -1)
 
 
 def top2_min(dist, col_valid):
-    """Per-row (best, best_idx, second) with invalid columns masked to +inf.
-    col_valid: (M,) or a (N, M) mask."""
+    """Per-row (best, best_idx, second) of (..., N, M) distances with invalid
+    columns masked to +inf.  col_valid: a mask that broadcasts against dist
+    ((M,), (..., 1, M) per lane, or (..., N, M))."""
     masked = torch.where(col_valid, dist, INF)
-    idx = torch.argmin(masked, dim=1)
-    best = torch.gather(masked, 1, idx[:, None])[:, 0]
-    cols = torch.arange(masked.shape[1], device=dist.device)
-    second = torch.min(torch.where(cols[None, :] == idx[:, None], INF, masked), dim=1).values
+    idx = torch.argmin(masked, dim=-1)
+    best = torch.gather(masked, -1, idx[..., None])[..., 0]
+    cols = torch.arange(masked.shape[-1], device=dist.device)
+    second = torch.min(torch.where(cols == idx[..., None], INF, masked), dim=-1).values
     return best, idx, second
 
 
@@ -84,7 +88,7 @@ def match_descriptors(
 ) -> MatchResult:
     """Match set1 -> set2 under threshold + Lowe ratio acceptance.
 
-    desc1: (N, D), valid1: (N,); desc2: (M, D), valid2: (M,).
+    desc1: (..., N, D), valid1: (..., N); desc2: (..., M, D), valid2: (..., M).
     method="pallas" routes to the fused top-2 kernel
     (``ops/cuda/match_kernel.py``): the CUDA kernel for CUDA tensors, its
     plain version for CPU tensors.
@@ -95,7 +99,7 @@ def match_descriptors(
         return match_descriptors_cuda(
             desc1, valid1, desc2, valid2, distance_threshold, ratio_threshold)
     dist = descriptor_distances(desc1, desc2, method)
-    best, idx, second = top2_min(dist, valid2)
+    best, idx, second = top2_min(dist, valid2.unsqueeze(-2))
     accept = accept_matches(best, second, valid1, distance_threshold, ratio_threshold)
     return MatchResult(idx=idx, valid=accept, best=best, second=second)
 
@@ -110,20 +114,22 @@ def match_descriptors_pair(
     matmul + top-2 chain: queries and targets are stacked and a block mask
     lets each query half see only its own target segment.
     Decision-identical to two ``match_descriptors(method="mxu")`` calls."""
-    N1, T1 = q1.shape[0], t1.shape[0]
-    q = torch.cat([q1, q2], 0)
-    t = torch.cat([t1, t2], 0)
-    tv = torch.cat([v_t1, v_t2], 0)
+    N1, T1 = q1.shape[-2], t1.shape[-2]
+    q = torch.cat([q1, q2], -2)
+    t = torch.cat([t1, t2], -2)
+    tv = torch.cat([v_t1, v_t2], -1)
     dist = descriptor_distances(q, t, "mxu")
-    rows_first = torch.arange(q.shape[0], device=q.device) < N1
-    cols_first = torch.arange(t.shape[0], device=q.device) < T1
-    best, idx, second = top2_min(dist, (rows_first[:, None] == cols_first[None, :]) & tv[None, :])
-    accept = accept_matches(best, second, torch.cat([v_q1, v_q2], 0),
-                     distance_threshold, ratio_threshold)
-    r1 = MatchResult(idx[:N1], accept[:N1], best[:N1], second[:N1])
+    rows_first = torch.arange(q.shape[-2], device=q.device) < N1
+    cols_first = torch.arange(t.shape[-2], device=q.device) < T1
+    best, idx, second = top2_min(dist, (rows_first[:, None] == cols_first[None, :])
+                                 & tv.unsqueeze(-2))
+    accept = accept_matches(best, second, torch.cat([v_q1, v_q2], -1),
+                            distance_threshold, ratio_threshold)
+    r1 = MatchResult(idx[..., :N1], accept[..., :N1], best[..., :N1], second[..., :N1])
     # a second-half row with no valid target argmins to column 0; clamp its
     # (masked) index into range instead of letting it go negative
-    r2 = MatchResult(torch.clamp(idx[N1:] - T1, min=0), accept[N1:], best[N1:], second[N1:])
+    r2 = MatchResult(torch.clamp(idx[..., N1:] - T1, min=0), accept[..., N1:],
+                     best[..., N1:], second[..., N1:])
     return r1, r2
 
 
