@@ -436,3 +436,30 @@ def test_batched_track_step_on_card_matches_cpu(dev):
         torch.testing.assert_close(lgg.pose.cpu(), lg.pose, atol=1e-4, rtol=0)
         assert torch.equal(lgg.n_map_matches.cpu(), lg.n_map_matches)
         state = s2
+
+
+def test_cli_run_on_card_launches_kernel_b_per_frame(dev, tmp_path, monkeypatch, capsys):
+    """``python -m tpuvo_torch --matcher pallas run`` on a written 20-frame
+    dataset, on the card by default: kernel B once per tracked frame plus
+    the bootstrap's match, and the trajectory the CLI evaluates equals a
+    ``run_sequence`` with the config the CLI loads."""
+    from tpuvo_torch import cli
+    from tpuvo_torch.data import load_camera_config, load_sequence
+    from tpuvo_torch.data.writer import write_dataset
+    from tpuvo_torch.engine import eval as ev
+
+    world = synthetic.make_world(5, n_landmarks=800, xy_extent=8.0)
+    gt = synthetic.make_planar_trajectory(20, step=0.2, turn=0.03, seed=5)
+    d = write_dataset(str(tmp_path / "data"), synthetic.render_sequence(world, gt, seed=5),
+                      world, CFG)
+    seen, evaluate = [], ev.evaluate
+    monkeypatch.setattr(ev, "evaluate", lambda p, *a, **kw: (seen.append(p), evaluate(p, *a, **kw))[1])
+    b0 = match_kernel.launches
+    cli.main(["--data", d, "--frames", "20", "--matcher", "pallas", "run",
+              "--out", str(tmp_path / "out")])
+    assert match_kernel.launches - b0 == 20  # 19 tracked frames + the bootstrap
+    assert seen[0].is_cuda and "ate_robot" in capsys.readouterr().out
+    cfg = load_camera_config(f"{d}/camera.dat", mode="fixed").replace(
+        matcher=MatcherConfig(method="pallas"))
+    _, _, poses, _ = vo.run_sequence(load_sequence(d, 20), cfg)
+    assert torch.equal(seen[0], poses)

@@ -13,6 +13,7 @@ kernel's plain PyTorch version.
 from __future__ import annotations
 
 import dataclasses
+import re
 from dataclasses import dataclass, field
 from typing import Tuple
 
@@ -176,6 +177,59 @@ class EngineConfig:
 
     def replace(self, **kw) -> "EngineConfig":
         return dataclasses.replace(self, **kw)
+
+    @staticmethod
+    def from_camera_dat(path: str, **overrides) -> "EngineConfig":
+        """Parse ``camera.dat`` (the reference never reads it).
+
+        Format::
+
+            camera matrix:
+            <3x3>
+            cam_transform:
+            <4x4>
+            z_near: <f>
+            z_far:  <f>
+            width:  <i>
+            height: <i>
+        """
+        with open(path) as f:
+            text = f.read()
+        nums = lambda line: [float(x) for x in line.split()]
+
+        lines = [ln.strip() for ln in text.splitlines() if ln.strip()]
+        K_rows, T_rows = [], []
+        scalars = {}
+        i = 0
+        while i < len(lines):
+            ln = lines[i]
+            if ln.startswith("camera matrix"):
+                K_rows = [nums(lines[i + j]) for j in (1, 2, 3)]
+                i += 4
+            elif ln.startswith("cam_transform"):
+                T_rows = [nums(lines[i + j]) for j in (1, 2, 3, 4)]
+                i += 5
+            else:
+                m = re.match(r"(\w+):\s*(-?[\d.]+)", ln)
+                if m:
+                    scalars[m.group(1)] = float(m.group(2))
+                i += 1
+        K = np.array(K_rows, dtype=np.float32)
+        T = np.array(T_rows, dtype=np.float32)
+        cfg = dict(
+            fx=float(K[0, 0]),
+            fy=float(K[1, 1]),
+            cx=float(K[0, 2]),
+            cy=float(K[1, 2]),
+            width=int(scalars.get("width", 640)),
+            height=int(scalars.get("height", 480)),
+            z_near=float(scalars.get("z_near", 0.0)),
+            z_far=float(scalars.get("z_far", 5.0)),
+            cam_to_image_rotation=tuple(tuple(float(v) for v in row[:3]) for row in T[:3]),
+            cam_to_image_translation=tuple(float(row[3]) for row in T[:3]),
+        )
+        cfg.update(overrides)
+        return EngineConfig(**cfg)
 
 
 DEFAULT_CONFIG = EngineConfig()

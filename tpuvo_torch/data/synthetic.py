@@ -48,6 +48,26 @@ def make_planar_trajectory(
     return poses
 
 
+def make_kitti_like_trajectory(
+    n_frames: int, step: float = 1.0, seed: int = 0
+) -> np.ndarray:
+    """KITTI-odometry-flavoured planar path: long straights (~1 m/frame)
+    with occasional 90-degree-ish turns.  Returns (F, 3) (x, y, theta)."""
+    rng = np.random.default_rng(seed)
+    poses = np.zeros((n_frames, 3), np.float32)
+    turn_until = -1
+    turn_rate = 0.0
+    for i in range(1, n_frames):
+        x, y, th = poses[i - 1]
+        if i > turn_until and rng.random() < 0.02:
+            turn_until = i + rng.integers(15, 30)
+            turn_rate = rng.choice([-1.0, 1.0]) * (np.pi / 2) / (turn_until - i)
+        rate = turn_rate if i <= turn_until else 0.0
+        th = th + rate + 0.002 * rng.standard_normal()
+        poses[i] = [x + step * np.cos(th), y + step * np.sin(th), th]
+    return poses
+
+
 def make_loop_trajectory(
     n_frames: int, step: float = 1.0, seed: int = 0, turn_frames: int = 12
 ) -> np.ndarray:

@@ -1,4 +1,5 @@
-"""Trajectory evaluation (twin of ``tpuvo/engine/eval.py``, same formulas).
+"""Trajectory evaluation and the reference-format artifacts (twin of
+``tpuvo/engine/eval.py``, same formulas, byte-identical files).
 
   * remap camera-frame poses to world axes: pose <- cameraToImage · pose
   * Sim(3) Umeyama alignment of estimated vs ground-truth translations;
@@ -14,12 +15,14 @@ the CPU, as the JAX twin runs them in fp32.
 
 from __future__ import annotations
 
+import os
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from tpuvo_torch.config import EngineConfig
+from tpuvo_torch.engine.state import to_host
 from tpuvo_torch.ops import lie
 
 
@@ -47,9 +50,7 @@ def evaluate(poses, gt_xyt, cfg: EngineConfig | None = None) -> EvalResult:
     """poses: (F, 4, 4) camera-in-world (camera-0 frame), numpy or tensor;
     gt_xyt: (F, 3) planar ground truth."""
     cfg = cfg or EngineConfig()
-    if isinstance(poses, torch.Tensor):
-        poses = poses.detach().cpu().numpy()
-    poses = np.asarray(poses)
+    poses = to_host(poses)
     poses_world = np.einsum("ij,fjk->fik", cfg.cam_to_image(), poses)
     gt_T = lie.augment_pose(torch.as_tensor(np.asarray(gt_xyt, np.float32))).numpy()
 
@@ -86,6 +87,58 @@ def evaluate(poses, gt_xyt, cfg: EngineConfig | None = None) -> EvalResult:
         trans_err, rot_err_parity, rot_err_fixed, ate_rmse,
         trans_err_robot, ate_robot,
     )
+
+
+def world_points_output(state, cfg: EngineConfig, scale: float):
+    """The estimated_world_points.txt dump: for each id in [0, 1000), the
+    FIRST map entry with that id_real, axis remapped and scaled.  ``state``:
+    a VOState on any device.  Returns (ids (M,), points (M, 3)) sorted by
+    id."""
+    cam_to_image = cfg.cam_to_image()
+    ids, xyz, valid = (to_host(x) for x in (state.map_id_real, state.map_xyz, state.map_valid))
+    out_ids, out_pts = [], []
+    for wid in range(1000):
+        hits = np.nonzero(valid & (ids == wid))[0]
+        if len(hits):
+            p = xyz[hits[0]]
+            q = cam_to_image[:3, :3] @ p * scale + cam_to_image[:3, 3]
+            out_ids.append(wid)
+            out_pts.append(q)
+    return np.asarray(out_ids, np.int32), np.asarray(out_pts, np.float32)
+
+
+def write_outputs(out_dir: str, result: EvalResult, state=None, cfg=None):
+    """Write the four reference-format artifacts: estimated_trajectory.txt,
+    estimated_trajectory_scaled.txt, errors.txt and (with a state)
+    estimated_world_points.txt."""
+    os.makedirs(out_dir, exist_ok=True)
+    F = result.poses_world.shape[0]
+    est_t = result.poses_world[:, :3, 3]
+    with open(os.path.join(out_dir, "estimated_trajectory.txt"), "w") as f_raw, open(
+        os.path.join(out_dir, "estimated_trajectory_scaled.txt"), "w"
+    ) as f_scl, open(os.path.join(out_dir, "errors.txt"), "w") as f_err:
+        for j in range(F):
+            a = result.angles[j]
+            f_raw.write(f"{j} {est_t[j,0]:g} {est_t[j,1]:g} {a:g}\n")
+            st = est_t[j] * result.scale
+            f_scl.write(f"{j} {st[0]:g} {st[1]:g} {a:g}\n")
+            f_err.write(f"{j} {result.trans_err[j]:g} {result.rot_err_parity[j]:g}\n")
+    if state is not None:
+        ids, pts = world_points_output(state, cfg or EngineConfig(), result.scale)
+        with open(os.path.join(out_dir, "estimated_world_points.txt"), "w") as f:
+            for wid, p in zip(ids, pts):
+                f.write(f"{wid} {p[0]:g} {p[1]:g} {p[2]:g}\n")
+
+
+def scale_from_norm_ratio(points_est, points_gt):
+    """Average of per-point norm ratios (the reference's alternative scale
+    estimator, compute_scale)."""
+    n_est = np.linalg.norm(points_est, axis=-1)
+    n_gt = np.linalg.norm(points_gt, axis=-1)
+    ok = (n_est > 0) & (n_gt > 0)
+    if not ok.any():
+        return 1.0
+    return float(np.mean(n_gt[ok] / n_est[ok]))
 
 
 def rotation_error_geodesic(R_est, R_gt):

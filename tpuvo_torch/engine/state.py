@@ -68,9 +68,14 @@ def tuple_from_numpy(cls, dtypes: dict, fields, device="cpu"):
                   for k in cls._fields})
 
 
+def to_host(x) -> np.ndarray:
+    """A numpy copy of a tensor on any device; any other array as numpy."""
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
 def tuple_to_numpy(tup) -> dict:
     """Field name -> numpy array (host copy) of a NamedTuple of tensors."""
-    return {k: getattr(tup, k).detach().cpu().numpy() for k in tup._fields}
+    return {k: to_host(getattr(tup, k)) for k in tup._fields}
 
 
 def state_from_numpy(fields, device="cpu") -> VOState:

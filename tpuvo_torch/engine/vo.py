@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import functools
 import math
+import os
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -505,6 +506,9 @@ class OnlineVO:
         vo.start(frame0, frame1)          # two-view bootstrap; frames on the run's device
         for frame in stream:
             pose = vo.step(frame)         # (4, 4) camera-in-world
+
+    ``checkpoint(path)`` / ``OnlineVO.resume(path, cfg)`` save and restore
+    a session (the npz layout of ``run_sequence_chunked``).
     """
 
     def __init__(self, cfg: EngineConfig | None = None, seed: int = 42):
@@ -531,3 +535,69 @@ class OnlineVO:
         self._prev = frame
         self.frame_count += 1
         return log.pose
+
+    def checkpoint(self, path: str):
+        """Save the session (state, frame count, the previous frame) in the
+        JAX package's npz layout."""
+        from tpuvo_torch.utils.checkpoint import save_state
+
+        save_state(path, self.state, self.frame_count,
+                   extra={f"prev_{k}": v for k, v in self._prev._asdict().items()})
+
+    @classmethod
+    def resume(cls, path: str, cfg: EngineConfig | None = None, seed: int = 42,
+               device="cuda") -> "OnlineVO":
+        """A session restored from ``checkpoint`` (of either package) onto
+        ``device``."""
+        from tpuvo_torch.utils.checkpoint import load_state
+
+        vo = cls(cfg, seed)
+        vo.state, vo.frame_count, extra = load_state(path, device)
+        vo._prev = Frame(*(_tensor(extra[f"prev_{k}"], dt, device) for k, dt in _FIELDS))
+        return vo
+
+
+def run_sequence_chunked(seq, cfg: EngineConfig | None = None, seed: int = 42,
+                         checkpoint_path: str | None = None, checkpoint_every: int = 30,
+                         resume: bool = True, max_chunks: int | None = None, device="cuda"):
+    """Checkpointed tracking: ``scan_tracker`` over chunks of
+    ``checkpoint_every`` steps, with a checkpoint (state + poses so far, the
+    JAX package's npz layout) after each.
+
+    The same ``track_step`` calls as ``run_sequence``, chunk edges aside.
+    With ``resume=True`` an existing checkpoint at ``checkpoint_path``
+    restarts tracking mid-sequence, and the trajectory matches the
+    uninterrupted run.  ``max_chunks`` stops after that many chunks (a crash
+    between checkpoints, for resume tests).  Nothing leaves the device
+    inside a chunk: the host pulls the state once per checkpoint.
+
+    Returns (state, poses (F, 4, 4), step_idx) — step_idx < F-1 when
+    stopped by max_chunks.
+    """
+    from tpuvo_torch.utils.checkpoint import load_state, save_state
+
+    cfg = cfg or EngineConfig()
+    F = seq.uv.shape[0]
+    n_steps = F - 1
+    frames = frames_of(seq, 0, F, device)
+    if resume and checkpoint_path and os.path.exists(checkpoint_path):
+        state, step, extra = load_state(checkpoint_path, device)
+        pose_chunks = [_tensor(extra["poses"], torch.float32, device)]
+    else:
+        state, _ = bootstrap(make_generator(seed), frame_at(frames, 0), frame_at(frames, 1), cfg)
+        step = 0
+        pose_chunks = [torch.zeros((0, 4, 4), dtype=torch.float32, device=device)]
+
+    chunks_run = 0
+    while step < n_steps and (max_chunks is None or chunks_run < max_chunks):
+        hi = min(step + checkpoint_every, n_steps)
+        state, logs = scan_tracker(state, Frame(*(x[step:hi] for x in frames)),
+                                   Frame(*(x[step + 1:hi + 1] for x in frames)), cfg)
+        pose_chunks.append(logs.pose)
+        step = hi
+        chunks_run += 1
+        if checkpoint_path:
+            save_state(checkpoint_path, state, step, extra={"poses": torch.cat(pose_chunks)})
+
+    eye = torch.eye(4, dtype=torch.float32, device=device)[None]
+    return state, torch.cat([eye, *pose_chunks]), step

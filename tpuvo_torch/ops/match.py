@@ -140,9 +140,11 @@ class MatchStats(NamedTuple):
 
 
 def match_stats(result: MatchResult, id1, valid1, id2, valid2) -> MatchStats:
-    """GT-oracle statistics of one match call."""
-    pair_same = (id1[:, None] == id2[None, :]) & valid1[:, None] & valid2[None, :]
-    possible = torch.sum(pair_same)
-    found = torch.sum(result.valid)
-    correct = torch.sum(result.valid & (id1 == id2[result.idx]))
+    """GT-oracle statistics of one match call, per lane when the arguments
+    have leading lane axes (id1 (..., N), id2 (..., M))."""
+    pair_same = ((id1[..., :, None] == id2[..., None, :]) & valid1[..., :, None]
+                 & valid2[..., None, :])
+    possible = torch.sum(pair_same, (-2, -1))
+    found = torch.sum(result.valid, -1)
+    correct = torch.sum(result.valid & (id1 == torch.gather(id2, -1, result.idx)), -1)
     return MatchStats(possible, found, correct)
