@@ -463,3 +463,94 @@ def test_cli_run_on_card_launches_kernel_b_per_frame(dev, tmp_path, monkeypatch,
         matcher=MatcherConfig(method="pallas"))
     _, _, poses, _ = vo.run_sequence(load_sequence(d, 20), cfg)
     assert torch.equal(seen[0], poses)
+
+
+# --- the sharded layer at world size 1 (NCCL in process) and the plain PICP's syncs
+@pytest.fixture(scope="module")
+def nccl_mesh():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: run "
+                    "`python -m pytest --noconftest -m cuda tests/test_torch_cuda.py` on the card")
+    import socket
+
+    import torch.distributed as dist
+
+    from tpuvo_torch.parallel.mesh import local_mesh
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}", rank=0,
+                            world_size=1)
+    try:
+        yield local_mesh(1), local_mesh(1, axis="edge")
+    finally:
+        dist.destroy_process_group()
+
+
+def test_sharded_match_pallas_is_kernel_b_once(nccl_mesh):
+    """The sharded matcher (method="pallas") at world size 1: bit-equal to
+    one unsharded kernel-B call, and one kernel-B launch per call."""
+    from tpuvo_torch.parallel.match_sharded import sharded_match_descriptors
+
+    g = torch.Generator(device="cuda").manual_seed(0)
+    d1 = torch.rand(128, 10, device="cuda", generator=g) * 2 - 1
+    d2 = torch.rand(8192, 10, device="cuda", generator=g) * 2 - 1
+    d2[100], d2[5000] = d1[3], d1[3] + 0.01
+    d2[4095] = d2[4096] = d1[7]
+    v1 = torch.ones(128, dtype=torch.bool, device="cuda")
+    v2 = torch.rand(8192, device="cuda", generator=g) < 0.95
+    v2[100] = v2[5000] = v2[4095] = v2[4096] = True
+    ref = match_kernel.match_descriptors_cuda(d1, v1, d2, v2)
+    n0 = match_kernel.launches
+    got = sharded_match_descriptors(nccl_mesh[0], d1, v1, d2, v2, method="pallas")
+    assert match_kernel.launches - n0 == 1
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert int(got.idx[3]) == 100 and int(got.idx[7]) == 4095
+
+
+def test_sharded_ba_on_card_matches_cpu(nccl_mesh):
+    """The sharded Schur BA on the card (world size 1, fixed damping) vs the
+    port's ba_solve on the CPU: poses atol 1e-4, points atol 1e-2 (as
+    test_ba_solve_on_card_matches_cpu), the integer stats exact."""
+    from tpuvo_torch.ba.window import ba_solve
+    from tpuvo_torch.config import BAConfig
+    from tpuvo_torch.parallel.ba_sharded import (gather_points, shard_ba_problem,
+                                                 sharded_ba_solve,
+                                                 sharded_problem_from_numpy)
+
+    p = ba_window_problem()
+    cfg = BAConfig(iterations=6, lm_adaptive=False)
+    ref, sr = ba_solve(p, torch.as_tensor(K), 640, 480, cfg)
+    sp = sharded_problem_from_numpy(shard_ba_problem(p, 1)._asdict(), "cuda")
+    got, sg = sharded_ba_solve(nccl_mesh[0], sp, torch.as_tensor(K, device="cuda"), 640, 480, cfg)
+    torch.testing.assert_close(got.poses.cpu(), ref.poses, atol=1e-4, rtol=0)
+    pts = gather_points(got, p.points.shape[0], nccl_mesh[0])
+    torch.testing.assert_close(torch.as_tensor(pts), ref.points, atol=1e-2, rtol=0)
+    assert (int(sg.num_obs), int(sg.num_inliers)) == (int(sr.num_obs), int(sr.num_inliers))
+
+
+def test_plain_picp_solve_syncs_once_a_round(dev):
+    """The plain solve reads its done flags once a round: one host sync a
+    round, 50 in a 50-round call, and no other."""
+    import warnings
+
+    X, Z, V, T0 = picp_problems(4, seed=2, noise=0.0)
+    cfg = PICPConfig(convergence_threshold=0.0)   # no round meets it: all 50 run
+    T0, X, Z, V = (torch.as_tensor(a, device=dev) for a in (T0, X, Z, V))
+    Kd = torch.as_tensor(K, device=dev)
+    picp.solve(Kd, T0, X, Z, None, V, 640, 480, cfg)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            res = picp.solve(Kd, T0, X, Z, None, V, 640, 480, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    syncs = [w for w in caught if "called a synchronizing" in str(w.message)]
+    assert int(res.iterations.max()) == cfg.max_iterations == 50
+    assert len(syncs) == 50

@@ -153,3 +153,11 @@ def test_native_parse_error_raises(dataset, tmp_path):
 def test_kitti_like_trajectory_matches_jax(n, seed):
     a, b = jsynthetic.make_kitti_like_trajectory(n, seed=seed), synthetic.make_kitti_like_trajectory(n, seed=seed)
     assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+def test_native_available_matches_jax():
+    """available() says whether the parser library can be used: built from
+    the same source, it is there wherever the JAX package's is."""
+    assert native.available() is (native.library() is not None)
+    if jnative.available():
+        assert native.available()

@@ -192,3 +192,28 @@ print("ok")
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
+
+
+def test_lie_axis_rotations_quat_yaw():
+    """rx, ry, v2t_quat, quat_to_rot, yaw against the JAX twins, on
+    tests/test_lie.py's cases and random batches."""
+    a = np.random.default_rng(6).uniform(-np.pi, np.pi, 12).astype(np.float32)
+    for name in ("rx", "ry", "rz"):
+        close(getattr(tlie, name)(t(a)), getattr(jlie, name)(jnp.asarray(a)))
+        R = getattr(tlie, name)(torch.tensor(0.3))
+        close(R @ R.T, np.eye(3), atol=1e-6)
+    v = np.array([1.0, 2.0, 3.0, 0.1, -0.2, 0.3], np.float32)
+    close(tlie.v2t_euler(t(v))[:3, :3],
+          tlie.rx(torch.tensor(0.1)) @ tlie.ry(torch.tensor(-0.2)) @ tlie.rz(torch.tensor(0.3)),
+          atol=1e-6)
+    qv = np.concatenate([_vecs(10, 7)[:, :3], np.random.default_rng(7).uniform(
+        -0.6, 0.6, (10, 3))], 1).astype(np.float32)
+    qv = np.concatenate([qv, [[0, 0, 0, 0.1, 0.2, 0.05], [0, 0, 0, 1.0, 1.0, 1.0]]]).astype(
+        np.float32)  # the w >= 1 branch last: identity rotation
+    close(tlie.v2t_quat(t(qv)), jlie.v2t_quat(jnp.asarray(qv)))
+    close(tlie.v2t_quat(t(qv[-1]))[:3, :3], np.eye(3))
+    q = np.random.default_rng(8).normal(size=(9, 4)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    close(tlie.quat_to_rot(t(q)), jlie.quat_to_rot(jnp.asarray(q)))
+    T = np.asarray(jlie.v2t_euler(jnp.asarray(_vecs())))
+    close(tlie.yaw(t(T)), jlie.yaw(jnp.asarray(T)))

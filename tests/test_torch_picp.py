@@ -208,3 +208,54 @@ def test_kernel_per_problem_thresholds():
         np.testing.assert_allclose(got.T[b].numpy(), one.T.numpy(), atol=1e-5)
         assert int(got.num_inliers[b]) == int(one.num_inliers)
     assert len(set(got.num_inliers.tolist())) > 1  # the thresholds split the inlier sets
+
+
+# --- the plain solve across round counts; it stops after the last round ---
+def round_count_batch():
+    """Problems that stop after 1 round (too few points), a few rounds
+    (noisy), and all 50 (noise-free at a stop threshold no round meets)."""
+    probs = [make_problem(noise=n, pose_err=0.05, seed=s)
+             for s, n in enumerate((0.5, 0.3, 1.0, 2.0, 0.0, 0.0))]
+    X, Z, V, _, T0 = (np.stack(a) for a in zip(*probs))
+    V[0, 4:] = False   # 4 points: fewer than MIN_INLIERS
+    return X, Z, V, T0
+
+
+MIN_INLIERS = 10
+
+
+@pytest.mark.parametrize("conv", [1e-4, 1e-5])
+def test_solve_batch_matches_jax_across_round_counts(conv):
+    import jax
+
+    X, Z, V, T0 = round_count_batch()
+    cfg = dict(convergence_threshold=conv, min_num_inliers=MIN_INLIERS)
+    ref = jax.vmap(lambda T, x, z, v: jpicp.solve(jnp.asarray(K), T, x, z, None, v, W, H,
+                                                  JPICPConfig(**cfg)))(
+        *map(jnp.asarray, (T0, X, Z, V)))
+    got = tpicp.solve(t(K), t(T0), t(X), t(Z), None, t(V), W, H, PICPConfig(**cfg))
+    its = got.iterations.numpy()
+    assert its[0] == 1 and its.max() > 16  # round counts spread from 1 to the tens
+    assert np.array_equal(got.converged.numpy(), np.asarray(ref.converged))
+    assert np.array_equal(got.num_inliers.numpy(), np.asarray(ref.num_inliers))
+    noisy = slice(0, 4)  # noise-free problems cannot hold iteration parity (ROADMAP §3)
+    assert np.abs(its[noisy] - np.asarray(ref.iterations)[noisy]).max() <= 1
+    np.testing.assert_allclose(got.T.numpy(), np.asarray(ref.T), atol=1e-3)
+
+
+@pytest.mark.parametrize("conv", [1e-4, 0.0])
+def test_solve_runs_no_round_after_every_problem_is_done(monkeypatch, conv):
+    """One host check of the done flags a round: the loop stops right after
+    the round in which the last problem finished (an idle round under the
+    done-mask costs a round's launches, far more than the check)."""
+    rounds = []
+    one_round = tpicp.one_round
+    monkeypatch.setattr(tpicp, "one_round", lambda *a: rounds.append(1) or one_round(*a))
+    X, Z, V, T0 = round_count_batch()
+    cfg = PICPConfig(convergence_threshold=conv, min_num_inliers=MIN_INLIERS)
+    got = tpicp.solve(t(K), t(T0), t(X), t(Z), None, t(V), W, H, cfg)
+    assert len(rounds) == int(got.iterations.max())
+    assert conv or len(rounds) == 50  # no round meets a stop threshold of 0
+    rounds.clear()
+    got = tpicp.solve(t(K), t(T0[:1]), t(X[:1]), t(Z[:1]), None, t(V[:1]), W, H, cfg)
+    assert int(got.iterations[0]) == 1 and len(rounds) == 1

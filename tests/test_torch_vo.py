@@ -154,6 +154,28 @@ def test_track_step_from_jax_state(branch):
         sj = sj2
 
 
+def test_make_tracker_matches_jax():
+    """make_tracker(cfg) from JAX's bootstrap state: the same scan as JAX's
+    compiled tracker (poses and counts; a short run, as the feedback loop
+    grows last-bit differences), and bit-equal to the port's scan_tracker."""
+    jc, tc = both_cfgs(map_capacity=256, max_obs=64)
+    jc = jc.replace(picp=dataclasses.replace(jc.picp, backend="xla"))
+    seq = make_seq(jc, noise=0.3, frames=5)
+    F = seq.uv.shape[0]
+    sj, _ = jvo.bootstrap_jit(jax.random.PRNGKey(42), jvo.frame_of(seq, 0), jvo.frame_of(seq, 1), jc)
+    _, lj = jvo.make_tracker(jc)(sj, jvo.frames_of(seq, 0, F - 1), jvo.frames_of(seq, 1, F))
+    frames = tvo.frames_of(seq, 0, F, "cpu")
+    curr = tvo.Frame(*(x[:F - 1] for x in frames))
+    nxt = tvo.Frame(*(x[1:] for x in frames))
+    st, lt = tvo.make_tracker(tc)(tstate.state_from_numpy(sj), curr, nxt)
+    np.testing.assert_allclose(lt.pose.numpy(), np.asarray(lj.pose), atol=1e-3)
+    for k in LOG_COUNTS:
+        assert np.array_equal(getattr(lt, k).numpy(), np.asarray(getattr(lj, k))), k
+    st2, lt2 = tvo.scan_tracker(tstate.state_from_numpy(sj), curr, nxt, tc)
+    assert all(torch.equal(a, b) for a, b in zip(lt, lt2))
+    assert all(torch.equal(a, b) for a, b in zip(st, st2))
+
+
 def test_annealed_with_pallas_backend_raises():
     _, tc = both_cfgs(mode="fixed", map_capacity=256, max_obs=64,
                       picp=dict(backend="pallas", annealed_kernel=True))

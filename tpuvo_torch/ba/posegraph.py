@@ -137,24 +137,46 @@ def pgo_eval_chi(poses, graph: PoseGraph, kernel_threshold: float):
                                  graph.edges_w * torch.clamp(chi, max=kernel_threshold), 0.0))
 
 
+def _reduce_system(H, b, n_inl, reduce):
+    """[H | b | n_inliers] as one (6F, 6F+2) buffer through ``reduce``
+    (ints < 2^24 are exact in f32); returns the reduced (H, b, n_inliers)."""
+    F, dt = H.shape[0], H.dtype
+    col = torch.cat([n_inl.to(dt).reshape(1), torch.zeros(F * 6 - 1, dtype=dt, device=H.device)])
+    buf = reduce(torch.cat([H.permute(0, 2, 1, 3).reshape(F * 6, F * 6), b.reshape(F * 6, 1),
+                            col[:, None]], 1))
+    return (buf[:, :F * 6].reshape(F, 6, F, 6).permute(0, 2, 1, 3), buf[:, F * 6].reshape(F, 6),
+            buf[0, F * 6 + 1].to(torch.int32))
+
+
 def pgo_solve(graph: PoseGraph, iterations: int = 20, kernel_threshold: float = 1.0,
-              damping: float = 1e-6, damping_init: float = 1e-3):
+              damping: float = 1e-6, damping_init: float = 1e-3, reduce=None):
     """Adaptive-LM pose-graph solve: one trial step per iteration; a
     rejected or non-finite step rolls back with lambda x4, an accepted one
     relaxes x0.5 toward ``damping``.  ``accept`` is a tensor and every
     carried value goes through ``torch.where`` (no host sync).  Returns
-    (optimized PoseGraph, PGOStats)."""
+    (optimized PoseGraph, PGOStats).
+
+    ``reduce``: a sum over the ranks that share the poses (the sharded
+    solver's all_reduce), given an edge block as ``graph``: each iteration
+    sums [H | b | n_inliers] in one fused buffer and the trial chi in one
+    scalar, so every rank takes the same step and the same accept test."""
     dev = graph.poses.device
+    if reduce is None:
+        chi_of = lambda ps: pgo_eval_chi(ps, graph, kernel_threshold)
+    else:
+        chi_of = lambda ps: reduce(pgo_eval_chi(ps, graph, kernel_threshold).reshape(1))[0]
     poses = graph.poses
-    chi_prev = pgo_eval_chi(poses, graph, kernel_threshold)
+    chi_prev = chi_of(poses)
     lam = torch.full((), damping_init, dtype=torch.float32, device=dev)
     n_inl = torch.zeros((), dtype=torch.int32, device=dev)
     for _ in range(iterations):
         H, b, _, n_inl = linearize_pgo(graph._replace(poses=poses), kernel_threshold)
+        if reduce is not None:
+            H, b, n_inl = _reduce_system(H, b, n_inl, reduce)
         dx = _solve_system(H, b, graph.fixed, lam)
         new_poses = lie.se3_exp(dx) @ poses
         new_poses = torch.where(graph.fixed[:, None, None], poses, new_poses)
-        chi_new = pgo_eval_chi(new_poses, graph, kernel_threshold)
+        chi_new = chi_of(new_poses)
         accept = (torch.isfinite(chi_new) & torch.isfinite(new_poses).all()
                   & (chi_new <= chi_prev))
         poses = torch.where(accept, new_poses, poses)

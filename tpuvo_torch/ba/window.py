@@ -228,12 +228,33 @@ def eval_robust_chi(problem: BAProblem, K, width, height, cfg: BAConfig):
     return torch.sum(torch.where(valid, per, 0.0))
 
 
-def ba_step(problem: BAProblem, K, width, height, cfg: BAConfig, damping=None):
+def _reduce_fused(S, b_red, stats: BAStats, reduce):
+    """[S | b | chi, inliers, obs] as one (6W, 6W+2) buffer through
+    ``reduce`` (ints < 2^24 are exact in f32); returns the reduced parts."""
+    n = S.shape[0]
+    extra = torch.cat([torch.stack([stats.chi, stats.num_inliers.to(S.dtype),
+                                    stats.num_obs.to(S.dtype)]),
+                       torch.zeros(n - 3, dtype=S.dtype, device=S.device)])
+    buf = reduce(torch.cat([S, b_red[:, None], extra[:, None]], 1))
+    return buf[:, :n], buf[:, n], BAStats(chi=buf[0, n + 1],
+                                          num_inliers=buf[1, n + 1].to(torch.int32),
+                                          num_obs=buf[2, n + 1].to(torch.int32))
+
+
+def ba_step(problem: BAProblem, K, width, height, cfg: BAConfig, damping=None, reduce=None):
     """One Levenberg-damped GN iteration; ``damping`` (a float or a 0-d
-    tensor) overrides cfg.damping."""
+    tensor) overrides cfg.damping.
+
+    ``reduce``: a sum over the ranks that share the poses (the sharded
+    solver's all_reduce), given a landmark shard as ``problem``: the reduced
+    camera system and the statistics are summed in one fused buffer before
+    the solve, so every rank takes the same pose step."""
     damping = cfg.damping if damping is None else damping
     Hpp, bp, Hll, bl, Wfl, stats = linearize_ba(problem, K, width, height, cfg)
-    S, b_red, Hll_inv, _ = schur_reduce(Hpp, bp, Hll, bl, Wfl, problem.fixed, damping)
+    S, b_red, Hll_inv = schur_parts(Hpp, bp, Hll, bl, Wfl, damping)
+    if reduce is not None:
+        S, b_red, stats = _reduce_fused(S, b_red, stats, reduce)
+    S, b_red = finalize_reduced(S, b_red, problem.fixed, damping)
     # a non-PD S gives a NaN step, which the LM loop rejects (see
     # cholesky_solve_nan)
     dx_p = cholesky_solve_nan(S, -b_red).reshape(-1, 6)

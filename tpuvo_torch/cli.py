@@ -23,10 +23,18 @@ Everything runs on the card unless ``--device cpu`` is given (the part
 runs the hand-written top-2 kernel for every frame's map match.  No flag
 selects the PICP kernel (as in the JAX CLI).
 
+Launched by ``torchrun`` (``torchrun --nproc_per_node N -m tpuvo_torch
+...``), the CLI first joins the process group the launcher describes
+(``parallel.mesh.maybe_distributed_init``: NCCL on the card, gloo with
+``--device cpu``), as the JAX CLI joins ``jax.distributed``; a failed join
+raises.  No subcommand shards its work yet, so a launch of more than one
+rank exits with an error before any work (each rank would run the whole
+pipeline and write the same files).  Without the launcher's variables it
+runs as one process.
+
 Not here: ``bench`` (``bench.py`` imports JAX; it comes with the benchmark on
-the card) and the JAX CLI's multi-host ``maybe_distributed_init`` (it comes
-with the ``parallel/`` slice).  ``--data`` defaults to ``data`` in the
-working directory, the reference's layout.
+the card).  ``--data`` defaults to ``data`` in the working directory, the
+reference's layout.
 """
 
 from __future__ import annotations
@@ -367,6 +375,15 @@ def main(argv=None):
     from tpuvo_torch.engine.vo import _check_device
 
     _check_device(args.device)  # no card: raise before any work
+    # a torchrun launch joins its process group (no-op otherwise); a failed
+    # join raises
+    from tpuvo_torch.parallel.mesh import maybe_distributed_init
+
+    world = maybe_distributed_init(args.device)
+    if world > 1:
+        raise SystemExit(f"{world} ranks: no subcommand shards its work yet, so each rank "
+                         "would run the whole pipeline and write the same --out files; "
+                         "launch with torchrun --nproc_per_node 1")
     args.fn(args)
 
 

@@ -83,6 +83,11 @@ def library() -> ctypes.CDLL | None:
     return lib
 
 
+def available() -> bool:
+    """Whether the native parser can be used (builds it at first call)."""
+    return library() is not None
+
+
 def load_sequence(data_dir: str, n_frames: int, prefix: str, max_obs: int):
     """The padded FrameObservations of ``{data_dir}/{prefix}%05d.dat``, i in
     [0, n_frames), parsed by the library (which must be available)."""

@@ -428,6 +428,13 @@ def full_run(generator, f0: Frame, f1: Frame, frames_curr: Frame,
     return scan_tracker(state, frames_curr, frames_next, cfg)
 
 
+def make_tracker(cfg: EngineConfig):
+    """The full-sequence tracker for ``cfg`` as a callable
+    ``(state, frames_curr, frames_next) -> (state, logs)`` (the JAX twin's
+    compiled ``scan_tracker``; here the same Python frame loop)."""
+    return lambda s, fc, fn: scan_tracker(s, fc, fn, cfg)
+
+
 def make_generator(seed: int) -> torch.Generator:
     """The RANSAC generator: on the CPU whatever the run's device, so a seed
     draws the same hypotheses on the CPU and on the card."""

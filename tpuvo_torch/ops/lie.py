@@ -1,7 +1,9 @@
 """SE(3)/SO(3) charts and similarity alignment on tensors.
 
-Twin of ``tpuvo/ops/lie.py``: ``v2t_euler`` (R = Rx(w0)·Ry(w1)·Rz(w2), the
-reference's left-multiplicative GN update), the ``se3_exp``/``se3_log``
+Twin of ``tpuvo/ops/lie.py``: the axis rotations ``rx``/``ry``/``rz``,
+``v2t_euler`` (R = Rx(w0)·Ry(w1)·Rz(w2), the reference's
+left-multiplicative GN update), the quaternion chart ``v2t_quat`` /
+``quat_to_rot``, the heading ``yaw``, the ``se3_exp``/``se3_log``
 chart of the BA and pose-graph solvers, the planar lift ``augment_pose``,
 and ``umeyama`` Sim(3) alignment.  Transforms are 4x4
 homogeneous float32 tensors; every function broadcasts over leading dims.
@@ -10,6 +12,26 @@ homogeneous float32 tensors; every function broadcasts over leading dims.
 from __future__ import annotations
 
 import torch
+
+
+def rx(a):
+    """Rotation about x."""
+    c, s = torch.cos(a), torch.sin(a)
+    z, o = torch.zeros_like(a), torch.ones_like(a)
+    return torch.stack(
+        [torch.stack([o, z, z], -1), torch.stack([z, c, -s], -1),
+         torch.stack([z, s, c], -1)], -2
+    )
+
+
+def ry(a):
+    """Rotation about y."""
+    c, s = torch.cos(a), torch.sin(a)
+    z, o = torch.zeros_like(a), torch.ones_like(a)
+    return torch.stack(
+        [torch.stack([c, z, s], -1), torch.stack([z, o, z], -1),
+         torch.stack([-s, z, c], -1)], -2
+    )
 
 
 def rz(a):
@@ -59,6 +81,30 @@ def v2t_euler(v):
         -2,
     )
     return rt_to_T(R, v[..., :3])
+
+
+def v2t_quat(v):
+    """6-vector -> SE(3) via the unit quaternion's imaginary part v[3:6]
+    (identity rotation when |v[3:6]| >= 1)."""
+    w2 = torch.sum(v[..., 3:6] ** 2, -1)
+    w = torch.sqrt(torch.clamp(1.0 - w2, min=0.0))
+    q = torch.cat([w[..., None], v[..., 3:6]], -1)  # (w, x, y, z)
+    R = torch.where((w2 < 1.0)[..., None, None], quat_to_rot(q),
+                    torch.eye(3, dtype=v.dtype, device=v.device))
+    return rt_to_T(R, v[..., :3])
+
+
+def quat_to_rot(q):
+    """Unit quaternion (w, x, y, z) -> rotation matrix."""
+    w, x, y, z = q[..., 0], q[..., 1], q[..., 2], q[..., 3]
+    return torch.stack(
+        [
+            torch.stack([1 - 2 * (y * y + z * z), 2 * (x * y - w * z), 2 * (x * z + w * y)], -1),
+            torch.stack([2 * (x * y + w * z), 1 - 2 * (x * x + z * z), 2 * (y * z - w * x)], -1),
+            torch.stack([2 * (x * z - w * y), 2 * (y * z + w * x), 1 - 2 * (x * x + y * y)], -1),
+        ],
+        -2,
+    )
 
 
 def so3_exp(w):
@@ -147,6 +193,11 @@ def augment_pose(pose_xyt):
     theta = pose_xyt[..., 2]
     t = torch.stack([pose_xyt[..., 0], pose_xyt[..., 1], torch.zeros_like(theta)], -1)
     return rt_to_T(rz(theta), t)
+
+
+def yaw(T):
+    """Planar heading: atan2(R10, R00)."""
+    return torch.atan2(T[..., 1, 0], T[..., 0, 0])
 
 
 def wrap_angle(a):
