@@ -168,13 +168,15 @@ def test_linalg_small_cholesky_eig_dlt():
 
 # ---------------------------------------------------------------- no JAX --
 def test_port_runs_without_jax():
-    """The port imports no JAX: with ``jax`` made unimportable, a 10-frame
-    run_sequence still runs on the CPU."""
+    """The port imports no JAX: with ``jax`` made unimportable, the CLI and
+    the bench import and a 10-frame run_sequence still runs on the CPU."""
     code = """
 import sys
 sys.modules["jax"] = None
 import numpy as np
 import tpuvo_torch
+import tpuvo_torch.bench
+import tpuvo_torch.cli
 from tpuvo_torch.config import EngineConfig
 from tpuvo_torch.data import synthetic
 from tpuvo_torch.engine.vo import run_sequence

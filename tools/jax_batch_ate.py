@@ -3,7 +3,7 @@ on the CPU: the reference behind chip_smoke.ATE_LIMITS.
 
     python tools/jax_batch_ate.py [--lanes 256] [--chunk 32] [--configs a,c]
 
-Builds chip_smoke.batch_fixture()'s sequence and chip_smoke.lane_uv's
+Builds chip_smoke.batch_fixture()'s sequence and tpuvo_torch.bench.lane_uv's
 per-lane pixel noise, then runs jax.vmap of the JAX package's bootstrap and
 scan_tracker as bench.py:236-239 does (keys: jax.random.split of
 PRNGKey(42)), in chunks of lanes, for configurations (a) and (c) of
@@ -35,6 +35,7 @@ import chip_smoke  # noqa: E402
 from tpuvo.config import EngineConfig, MatcherConfig, PICPConfig  # noqa: E402
 from tpuvo.engine import vo  # noqa: E402
 from tpuvo.engine.eval import evaluate  # noqa: E402
+from tpuvo_torch import bench  # noqa: E402
 
 CONFIGS = {
     "a": EngineConfig(mode="fixed", fuse_frame_matchers=True,
@@ -52,7 +53,7 @@ def main():
     ap.add_argument("--configs", default="a,c")
     args = ap.parse_args()
     seq, gt = chip_smoke.batch_fixture()
-    uv = chip_smoke.lane_uv(seq, args.lanes, seed=3)
+    uv = bench.lane_uv(seq, args.lanes, salt=3)
     F = seq.uv.shape[0]
     keys = jax.random.split(jax.random.PRNGKey(42), args.lanes)
     shared = {k: jnp.asarray(getattr(seq, k)) for k in ("desc", "id_meas", "id_real", "valid")}

@@ -16,6 +16,10 @@ printed JSON and files written.
                  loop-closure/global refinement; writes run artifacts
   sweep        — the robust-threshold sweep (a lane per threshold)
   refine       — tracking + BA refinement of the whole trajectory
+  bench        — the benchmark (``tpuvo_torch/bench.py``): one JSON line
+                 from the accuracy gate, latency, throughput and SLAM
+                 sections; reads ``TPUVO_DATA`` and ``TPUVO_BENCH_*``, not
+                 --data, --frames or --mode
 
 Everything runs on the card unless ``--device cpu`` is given (the part
 ``JAX_PLATFORMS`` plays for the JAX CLI); without a card the CLI raises, as
@@ -32,8 +36,7 @@ rank exits with an error before any work (each rank would run the whole
 pipeline and write the same files).  Without the launcher's variables it
 runs as one process.
 
-Not here: ``bench`` (``bench.py`` imports JAX; it comes with the benchmark on
-the card).  ``--data`` defaults to ``data`` in the working directory, the
+``--data`` defaults to ``data`` in the working directory, the
 reference's layout.
 """
 
@@ -308,6 +311,12 @@ def cmd_refine(args):
     }, indent=2))
 
 
+def cmd_bench(args):
+    from tpuvo_torch import bench
+
+    bench.main(device=args.device)
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="tpuvo_torch", description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -370,6 +379,7 @@ def main(argv=None):
     s.add_argument("--iterations", type=int, default=15)
     s.add_argument("--sweeps", type=int, default=2)
     s.set_defaults(fn=cmd_refine)
+    s = sub.add_parser("bench"); s.set_defaults(fn=cmd_bench)
 
     args = p.parse_args(argv)
     from tpuvo_torch.engine.vo import _check_device

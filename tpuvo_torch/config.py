@@ -78,8 +78,8 @@ class RansacConfig:
 
 @dataclass(frozen=True)
 class BAConfig:
-    """Sliding-window bundle adjustment (mirrored for config parity; the BA
-    layer itself is not ported yet)."""
+    """Sliding-window bundle adjustment: the local BA inside SLAM tracking
+    and the global refiners (``ba/window.py``, ``engine/ba_refine.py``)."""
 
     window: int = 10
     max_landmarks: int = MAP_CAPACITY
