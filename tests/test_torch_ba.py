@@ -57,7 +57,8 @@ def make_problem(W=8, L=256, noise_px=0.3, pose_noise=0.02, point_noise=0.03, se
 
 
 def both(fields):
-    return jw.BAProblem(**{k: jnp.asarray(v) for k, v in fields.items()}), tw.problem_from_numpy(fields)
+    return (jw.BAProblem(**{k: jnp.asarray(v) for k, v in fields.items()}),
+            tw.problem_from_numpy(fields, "cpu"))
 
 
 def close_rel(t, j, rtol=1e-5, msg=""):
@@ -255,7 +256,7 @@ def test_build_problem_from_vo_matches_jax():
                   map_count=np.int32(250), map_last_seen=np.zeros(C, np.int32),
                   frame_idx=np.int32(0))
     sj = JState(**{k: jnp.asarray(v) for k, v in fields.items()})
-    st = state_from_numpy(fields)
+    st = state_from_numpy(fields, "cpu")
     pj = jw.build_problem_from_vo(sj, seq, [1, 3, 4], cfg)
     pt = tw.build_problem_from_vo(st, seq, [1, 3, 4], EngineConfig(map_capacity=300))
     for k in jw.BAProblem._fields:
@@ -271,7 +272,7 @@ def test_build_problem_from_vo_matches_jax():
 def test_problem_converters_round_trip():
     p = make_problem(W=3, L=64)
     jp, _ = both(p)
-    tp = tw.problem_from_numpy(jp)
+    tp = tw.problem_from_numpy(jp, "cpu")
     back = tw.problem_to_numpy(tp)
     for k, v in p.items():
         assert np.array_equal(back[k], v), k

@@ -143,7 +143,7 @@ def test_batched_append_to_map_matches_jax(reuse):
     outj = jax.vmap(lambda s, x, d, i, m: jvo._append_to_map(s, x, d, i, i + 1, m,
                                                              reuse_slots=reuse))(
         sj, jnp.asarray(xyz), jnp.asarray(desc), jnp.asarray(ids), jnp.asarray(mask))
-    outt = tvo._append_to_map(tstate.state_from_numpy(fields), torch.as_tensor(xyz),
+    outt = tvo._append_to_map(tstate.state_from_numpy(fields, "cpu"), torch.as_tensor(xyz),
                               torch.as_tensor(desc), torch.as_tensor(ids),
                               torch.as_tensor(ids + 1), torch.as_tensor(mask), reuse_slots=reuse)
     for k in tstate.VOState._fields:
@@ -192,7 +192,7 @@ def test_batched_track_step_from_jax_state(branch):
     jstep = jax.jit(jax.vmap(lambda s, c, n: jvo.track_step(s, c, n, jc)))
     fr = torch_frames(a)
     for i in range(F - 1):
-        st = tstate.state_from_numpy(sj)
+        st = tstate.state_from_numpy(sj, "cpu")
         sj2, lj = jstep(sj, jax_frame(a, i), jax_frame(a, i + 1))
         st2, lt = tvo.track_step(st, tvo.lane_frame_at(fr, i), tvo.lane_frame_at(fr, i + 1), tc)
         assert lt.pose.shape == (B, 4, 4) and st2.map_xyz.shape[0] == B
@@ -281,7 +281,7 @@ def test_threshold_sweep_step_from_jax_state(backend):
     lanes = lambda f: tvo.Frame(*(x.expand((B,) + x.shape) for x in f))
     differ = 0
     for i in range(F - 1):
-        st = tstate.state_from_numpy(sj)
+        st = tstate.state_from_numpy(sj, "cpu")
         sj2, lj = jstep(sj, jvo.frame_of(seq, i), jvo.frame_of(seq, i + 1), thr)
         st2, lt = tvo.track_step(st, lanes(tvo.frame_at(fr, i)), lanes(tvo.frame_at(fr, i + 1)),
                                  tc, kernel_threshold=torch.tensor(THRESHOLDS))

@@ -116,11 +116,57 @@ def test_picp_kernel_gathers_by_corr_idx(dev):
 
 
 def test_picp_kernel_rejects_annealing_and_bad_input(dev):
+    """The kernel takes the annealed schedule (one launch, as the plain
+    solve) and a K tensor on the card; it refuses an input off the card."""
     X, Z, V, T0 = (torch.as_tensor(a, device=dev) for a in picp_problems(2))
-    with pytest.raises(ValueError, match="annealing"):
-        picp_kernel.solve_cuda(K, T0, X, Z, None, V, 640, 480, PICPConfig(annealed_kernel=True))
+    cfg = PICPConfig(annealed_kernel=True, convergence_threshold=1e-4)
+    Kd = torch.as_tensor(K, device=dev)
+    n0 = picp_kernel.launches
+    got = picp_kernel.solve_cuda(Kd, T0, X, Z, None, V, 640, 480, cfg)
+    assert picp_kernel.launches == n0 + 1
+    check_picp(got, picp.solve(Kd, T0, X, Z, None, V, 640, 480, cfg))
     with pytest.raises(ValueError):
         picp_kernel.solve_cuda(K, T0, X.cpu(), Z, None, V, 640, 480, PICPConfig())
+
+
+def anneal_problems(B, seed, dev):
+    """B problems started far off (the first rounds' median chi lies above
+    the thresholds), ten rows of each 40 px off, 60-100% of rows valid."""
+    rng = np.random.default_rng(seed)
+    X, Z, V, _ = picp_problems(B, seed=seed)
+    Z[:, :10] += 40.0
+    V &= rng.random(V.shape) < rng.uniform(0.6, 1.0, (B, 1))
+    dv = torch.as_tensor(rng.normal(0, 0.08, (B, 6)).astype(np.float32))
+    T0 = lie.v2t_euler(dv).numpy()
+    return [torch.as_tensor(a, device=dev) for a in (T0, X, Z, V)]
+
+
+@pytest.mark.parametrize("case", ["B=1 gathered from 512 slots", "B=256 thresholds per lane"])
+def test_picp_kernel_annealed_matches_plain(dev, case):
+    """The annealed schedule (a lower median of the in-bounds chi each
+    round) in the kernel against the plain solve: the tracker's B=1 form
+    gathered from a 512-slot map, and 256 problems with a threshold each
+    (the sweep's lanes).  The schedule must matter: without it the kernel
+    gives other poses."""
+    T0, X, Z, V = anneal_problems(1 if case.startswith("B=1") else 256, 12, dev)
+    cfg = PICPConfig(annealed_kernel=True, convergence_threshold=1e-4, kernel_threshold=200.0)
+    thr, idx = None, None
+    if case.startswith("B=1"):
+        rng = np.random.default_rng(12)
+        world = torch.as_tensor(rng.normal(0, 5, (512, 3)).astype(np.float32), device=dev)
+        idx = torch.as_tensor(rng.choice(512, 128, replace=False), device=dev)
+        world[idx] = X[0]
+        T0, X, Z, V = T0[0], world, Z[0], V[0]
+    else:
+        thr = torch.tensor([50.0, 200.0, 1000.0], device=dev).repeat(86)[:256]
+    Kd = torch.as_tensor(K, device=dev)
+    got = picp_kernel.solve_cuda(K, T0, X, Z, idx, V, 640, 480, cfg, thr)
+    check_picp(got, picp.solve(Kd, T0, X, Z, idx, V, 640, 480, cfg, thr))
+    import dataclasses
+
+    flat = picp_kernel.solve_cuda(K, T0, X, Z, idx, V, 640, 480,
+                                  dataclasses.replace(cfg, annealed_kernel=False), thr)
+    assert not torch.equal(flat.T, got.T)
 
 
 def match_sets(n, m, seed, dev):
@@ -454,10 +500,11 @@ def test_cli_run_on_card_launches_kernel_b_per_frame(dev, tmp_path, monkeypatch,
                       world, CFG)
     seen, evaluate = [], ev.evaluate
     monkeypatch.setattr(ev, "evaluate", lambda p, *a, **kw: (seen.append(p), evaluate(p, *a, **kw))[1])
-    b0 = match_kernel.launches
+    a0, b0 = picp_kernel.launches, match_kernel.launches
     cli.main(["--data", d, "--frames", "20", "--matcher", "pallas", "run",
               "--out", str(tmp_path / "out")])
     assert match_kernel.launches - b0 == 20  # 19 tracked frames + the bootstrap
+    assert picp_kernel.launches - a0 == 19   # the CLI's default PICP is kernel A too
     assert seen[0].is_cuda and "ate_robot" in capsys.readouterr().out
     cfg = load_camera_config(f"{d}/camera.dat", mode="fixed").replace(
         matcher=MatcherConfig(method="pallas"))
@@ -533,24 +580,109 @@ def test_sharded_ba_on_card_matches_cpu(nccl_mesh):
     assert (int(sg.num_obs), int(sg.num_inliers)) == (int(sr.num_obs), int(sr.num_inliers))
 
 
-def test_plain_picp_solve_syncs_once_a_round(dev):
-    """The plain solve reads its done flags once a round: one host sync a
-    round, 50 in a 50-round call, and no other."""
+def count_syncs(fn):
+    """(fn()'s result, the host syncs while it ran) by torch's sync debug mode."""
     import warnings
 
-    X, Z, V, T0 = picp_problems(4, seed=2, noise=0.0)
-    cfg = PICPConfig(convergence_threshold=0.0)   # no round meets it: all 50 run
-    T0, X, Z, V = (torch.as_tensor(a, device=dev) for a in (T0, X, Z, V))
-    Kd = torch.as_tensor(K, device=dev)
-    picp.solve(Kd, T0, X, Z, None, V, 640, 480, cfg)
     torch.cuda.synchronize()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
         try:
-            res = picp.solve(Kd, T0, X, Z, None, V, 640, 480, cfg)
+            res = fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    syncs = [w for w in caught if "called a synchronizing" in str(w.message)]
+    return res, sum("called a synchronizing" in str(w.message) for w in caught)
+
+
+def test_plain_picp_solve_syncs_once_a_round(dev):
+    """The plain solve (the CPU's path, the card's reference) reads its done
+    flags once a round: one host sync a round, 50 in a 50-round call, and
+    no other."""
+    X, Z, V, T0 = picp_problems(4, seed=2, noise=0.0)
+    cfg = PICPConfig(convergence_threshold=0.0)   # no round meets it: all 50 run
+    T0, X, Z, V = (torch.as_tensor(a, device=dev) for a in (T0, X, Z, V))
+    Kd = torch.as_tensor(K, device=dev)
+    picp.solve(Kd, T0, X, Z, None, V, 640, 480, cfg)
+    res, syncs = count_syncs(lambda: picp.solve(Kd, T0, X, Z, None, V, 640, 480, cfg))
     assert int(res.iterations.max()) == cfg.max_iterations == 50
-    assert len(syncs) == 50
+    assert syncs == 50
+
+
+@pytest.mark.parametrize("picp_cfg", [dict(), dict(unrolled_rounds=8)])
+def test_track_step_xla_launches_kernel_a_without_a_sync(dev, monkeypatch, picp_cfg):
+    """backend='xla' (and its unrolled driver) on the card: each track_step
+    launches kernel A once, its solve syncs the host 0 times (the plain
+    loop read it once a round), and the step matches the CPU's."""
+    cfg = EngineConfig(mode="fixed", map_capacity=256, max_obs=64,
+                       matcher=MatcherConfig(method="pallas"),
+                       picp=PICPConfig(convergence_threshold=1e-4, **picp_cfg))
+    world = synthetic.make_world(13, n_landmarks=300, xy_extent=8.0)
+    seq = synthetic.render_sequence(world, synthetic.make_planar_trajectory(10, seed=13), cfg,
+                                    pixel_noise=0.3, seed=13)
+    F = seq.uv.shape[0]
+    fr, frg = vo.frames_of(seq, 0, F, "cpu"), vo.frames_of(seq, 0, F, dev)
+    solve, syncs = vo.solve_cuda, []
+
+    def counted(*a, **kw):
+        res, n = count_syncs(lambda: solve(*a, **kw))
+        syncs.append(n)
+        return res
+
+    monkeypatch.setattr(vo, "solve_cuda", counted)
+    state, _ = vo.bootstrap(vo.make_generator(42), vo.frame_at(fr, 0), vo.frame_at(fr, 1), cfg)
+    for i in range(F - 1):
+        s2, lg = vo.track_step(state, vo.frame_at(fr, i), vo.frame_at(fr, i + 1), cfg)
+        n0 = picp_kernel.launches
+        _, lgg = vo.track_step(VOState(*(x.to(dev) for x in state)), vo.frame_at(frg, i),
+                               vo.frame_at(frg, i + 1), cfg)
+        assert picp_kernel.launches == n0 + 1
+        torch.testing.assert_close(lgg.pose.cpu(), lg.pose, atol=1e-4, rtol=0)
+        assert int(lgg.num_inliers) == int(lg.num_inliers)
+        state = s2
+    assert len(syncs) == 2 * (F - 1) and syncs[1::2] == [0] * (F - 1)
+
+
+def test_pnp_ransac_on_card_is_kernel_a_once(dev):
+    """pnp_ransac on CUDA tensors polishes its B refits in one kernel-A
+    launch (K a CUDA tensor, read by the kernel); the poses agree with the
+    CPU run and the truth (the 12x12 eigh of the DLT runs in another
+    library on the card)."""
+    from tpuvo_torch.ops import pnp
+
+    rng = np.random.default_rng(4)
+    B, N = 4, 128
+    T_true = lie.v2t_euler(torch.as_tensor(rng.normal(0, 0.1, (B, 6)).astype(np.float32)))
+    X = np.stack([rng.uniform(-4, 4, (B, N)), rng.uniform(-3, 3, (B, N)),
+                  rng.uniform(4, 15, (B, N))], -1).astype(np.float32)
+    Xw = torch.einsum("bij,bnj->bni", lie.inv_se3(T_true)[:, :3, :3], torch.as_tensor(X)) \
+        + lie.inv_se3(T_true)[:, None, :3, 3]
+    uv = torch.as_tensor(X[..., :2] / X[..., 2:] * 180.0 + np.array([320.0, 240.0], np.float32)
+                         + 0.3 * rng.standard_normal((B, N, 2)).astype(np.float32))
+    uv[:, :12] += 60.0
+    valid = torch.ones(B, N, dtype=torch.bool)
+    U = pnp.ransac_uniforms(torch.Generator().manual_seed(2), (B, 64, N), "cpu")
+    Kt = torch.as_tensor(K)
+    ref, ok_ref, n_ref = pnp.pnp_ransac(None, Kt, Xw, uv, valid, 640, 480, uniforms=U)
+    n0 = picp_kernel.launches
+    got, ok, n_inl = pnp.pnp_ransac(None, Kt.to(dev), Xw.to(dev), uv.to(dev), valid.to(dev),
+                                    640, 480, uniforms=U.to(dev))
+    assert picp_kernel.launches == n0 + 1
+    assert torch.equal(ok.cpu(), ok_ref) and bool(ok.all())
+    assert (n_inl.cpu() - n_ref).abs().max() <= 2
+    torch.testing.assert_close(got.cpu(), ref, atol=1e-3, rtol=0)
+    assert float((got.cpu() - T_true).abs().max()) < 0.05
+
+
+def test_shard_ba_problem_on_card(dev):
+    """shard_ba_problem reads a problem on the card to the host once and
+    returns its shards on the card, equal to the CPU problem's."""
+    from tpuvo_torch.parallel.ba_sharded import shard_ba_problem
+
+    p = ba_window_problem()
+    ref = shard_ba_problem(p, 3)
+    got = shard_ba_problem(type(p)(*(x.to(dev) for x in p)), 3)
+    for k in ("poses", "points", "point_valid", "obs_uv", "obs_lm", "obs_valid", "fixed"):
+        a, b = getattr(ref, k), getattr(got, k)
+        assert a.device.type == "cpu" and b.is_cuda and torch.equal(a, b.cpu()), k
+    assert np.array_equal(ref.lm_perm, got.lm_perm) and ref.active == got.active

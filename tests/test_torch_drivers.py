@@ -112,7 +112,7 @@ def test_run_vo_overrides_scale_and_duplicates(fixture, monkeypatch):
     monkeypatch.setattr(jvo, "run_sequence", lambda s, cfg, seed: (
         seen.setdefault("jax", cfg), js, None, jnp.asarray(poses.numpy()), {})[1:])
     monkeypatch.setattr(vo, "run_sequence", lambda s, cfg, seed, device: (
-        seen.setdefault("port", cfg), state_from_numpy(js), None, poses, {})[1:])
+        seen.setdefault("port", cfg), state_from_numpy(js, "cpu"), None, poses, {})[1:])
     *_, dj = jdrivers.run_vo(seq, JCfg(), seed=42)
     *_, dt = drivers.run_vo(seq, EngineConfig(), seed=42, device="cpu")
     assert dataclasses.asdict(seen["port"].picp) == dataclasses.asdict(seen["jax"].picp)

@@ -196,7 +196,7 @@ def test_pgo_solve_matches_jax():
     fields = dict(poses=dead, edges_ij=eij, edges_T=eT.astype(np.float32), edges_w=ew,
                   fixed=np.arange(F) == 0)
     gj = jpg.PoseGraph(**{k: jnp.asarray(v) for k, v in fields.items()})
-    gt_ = tpg.graph_from_numpy(gj)
+    gt_ = tpg.graph_from_numpy(gj, "cpu")
     lin_j = jax.jit(jpg.linearize_pgo)
     for thr in (1.0, 1e8):
         Hj, bj, cj, nj = lin_j(gj, thr)
@@ -305,6 +305,67 @@ def test_close_loops_matches_jax():
     assert int(ng) == int(nt) and ate(pg.numpy()) < 0.5 * ate(drifted)
 
 
+def pnp_cases():
+    """test_pnp_ransac_matches_jax_with_its_uniforms's three problems."""
+    cases = []
+    for seed in (11, 12, 13):
+        _, X, uv, valid = random_pnp(seed, n=48, noise_px=0.3)
+        rng = np.random.default_rng(seed)
+        uv[rng.choice(40, 8, replace=False)] += rng.uniform(40, 120, (8, 2)).astype(np.float32)
+        valid[44:] = False
+        cases.append((X, uv, valid))
+    return [T(np.stack(a)) for a in zip(*cases)]
+
+
+def polish_run(fn):
+    """(the call, its batch shape, the polish threshold, the PICP rounds)"""
+    if fn == "close_loops":
+        seq, world, _, drifted, obs_lm = loop_fixture()
+        args = (drifted, world.xyz, np.ones(world.xyz.shape[0], bool), seq.uv, obs_lm,
+                seq.valid)
+        return lambda: tloop.close_loops(KT, *map(T, args), 640, 480)[0], (32,), 9 * 64.0
+    X, uv, valid = pnp_cases()
+    if fn == "pnp_ransac":
+        g = lambda: torch.Generator().manual_seed(5)
+        return lambda: tpnp.pnp_ransac(g(), KT, X, uv, valid, 640, 480)[0], (3,), 9 * 64.0
+    shape = lambda a: a[[0, 1, 2, 2, 1, 0]].reshape((2, 3) + a.shape[1:])  # two batch axes
+    return (lambda: tpnp.pnp_solve(KT, shape(X), shape(uv), shape(valid), 640, 480)[0],
+            (2, 3), 1.0e6)
+
+
+@pytest.mark.parametrize("fn", ["pnp_ransac", "pnp_solve", "close_loops"])
+def test_pnp_polish_launches_the_kernel_on_the_card_only(monkeypatch, fn):
+    """The PnP polish (the RANSAC refit's, pnp_solve's, and so close_loops'
+    E = 32 loop pairs) on a CUDA device: ONE kernel call for the whole
+    batch, per-observation points (corr_idx None), its threshold (9 thr^2
+    or pnp_solve's permissive one), 10 rounds at rel-chi 1e-6 and the
+    caller's K tensor, no plain loop; on the CPU the plain loop once and
+    never the kernel.  The kernel's stand-in is the plain solve of what it
+    was handed, so both routes give the same poses bit for bit."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from test_torch_picp import kernel_route
+
+    run, batch, thr = polish_run(fn)
+    poses = {}
+    for card in (True, False):
+        with monkeypatch.context() as mp:
+            seen = kernel_route(mp, card)
+            poses[card] = run()
+        if card:
+            assert seen["plain"] == [] and len(seen["kernel"]) == 1
+            call = seen["kernel"][0]
+            assert call["batch"] == batch and not call["gathered"] and call["thr"] == thr
+            assert call["K"] is KT
+            assert (call["cfg"].max_iterations, call["cfg"].convergence_threshold,
+                    call["cfg"].annealed_kernel) == (10, 1e-6, False)
+        else:
+            assert seen == {"kernel": [], "plain": ["solve"]}
+    assert torch.equal(poses[True], poses[False])
+
+
 @pytest.fixture(scope="module")
 def tracked():
     """A 12-frame JAX tracker run: its state, poses and sequence."""
@@ -320,7 +381,7 @@ def tracked():
 def test_refiners_match_jax(tracked, which):
     jc, seq, sj, poses = tracked
     tc = EngineConfig(mode="fixed", map_capacity=512)
-    st = state_from_numpy(sj)
+    st = state_from_numpy(sj, "cpu")
     if which == "global":
         kw = dict(window=12, iterations=6)
         oj = jref.refine_trajectory_global(sj, seq, poses, jc, JBA(**kw), n_sweeps=2, max_sweeps=3)

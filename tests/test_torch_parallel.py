@@ -196,7 +196,7 @@ WORKER = textwrap.dedent(
 
     ec = EngineConfig()
     K = t(ec.K())
-    prob = problem_from_numpy({k[3:]: z[k] for k in z if k.startswith("ba_")})
+    prob = problem_from_numpy({k[3:]: z[k] for k in z if k.startswith("ba_")}, "cpu")
     L = prob.points.shape[0]
     cfg = BAConfig(iterations=int(z["ba_iterations"]), damping=float(z["ba_damping"]),
                    lm_adaptive=False)
@@ -211,7 +211,7 @@ WORKER = textwrap.dedent(
     out["ba_step_points"] = gather_points(stepped, L, mesh)
     out["ba_step_stats"] = np.array([float(st1.chi), int(st1.num_inliers), int(st1.num_obs)])
 
-    graph = graph_from_numpy({k[4:]: z[k] for k in z if k.startswith("pgo_")})
+    graph = graph_from_numpy({k[4:]: z[k] for k in z if k.startswith("pgo_")}, "cpu")
     g2, ps = sharded_pgo_solve(edge_mesh, graph, iterations=int(z["pgo_iterations"]))
     out["pgo_poses"] = g2.poses.numpy()
     out["pgo_stats"] = np.array([float(ps.chi), int(ps.num_inliers), int(ps.iterations)])
@@ -237,7 +237,7 @@ WORKER = textwrap.dedent(
     ck.close()
 
     # a VOState round trip with the state_type tag, and a dict that is not one
-    vo = empty_state(ec)
+    vo = empty_state(ec, "cpu")
     g = torch.Generator().manual_seed(3)
     vo = vo._replace(pose=torch.randn(4, 4, generator=g),
                      map_xyz=torch.randn(vo.map_xyz.shape, generator=g),
@@ -255,7 +255,7 @@ WORKER = textwrap.dedent(
     assert all(torch.equal(a, b) for a, b in zip(vo, vo2))
     d, _ = ck.restore(step=10)
     assert type(d) is dict and set(d) == set(VOState._fields)
-    vo3, _ = ck.restore(target=empty_state(ec))   # latest: 11, fields backfilled
+    vo3, _ = ck.restore(target=empty_state(ec, "cpu"))   # latest: 11, fields backfilled
     assert type(vo3) is VOState and torch.equal(vo3.map_xyz, vo.map_xyz)
     assert torch.equal(vo3.vel, torch.eye(4)) and int(vo3.frame_idx) == 0
     assert not vo3.map_last_seen.any()
@@ -377,7 +377,7 @@ def test_checkpointer_without_a_group(tmp_path):
     from tpuvo_torch.utils.checkpoint import DistCheckpointer
 
     assert not dist.is_initialized()
-    vo = empty_state(EngineConfig())
+    vo = empty_state(EngineConfig(), "cpu")
     vo = vo._replace(map_xyz=torch.randn(vo.map_xyz.shape, generator=torch.Generator()
                                          .manual_seed(0)))
     ck = DistCheckpointer(str(tmp_path / "ck"))
@@ -404,18 +404,42 @@ def ranks(tmp_path_factory):
 def test_shard_ba_problem_matches_jax(n_shards, obs_pad_to):
     prob, _ = ba_problem()
     ref = jbs.shard_ba_problem(prob, n_shards, obs_pad_to)
-    got = shard_ba_problem(problem_from_numpy(np_fields(prob)), n_shards, obs_pad_to)
+    got = shard_ba_problem(problem_from_numpy(np_fields(prob), "cpu"), n_shards, obs_pad_to)
     for k in ("poses", "points", "point_valid", "obs_uv", "obs_lm", "obs_valid", "fixed"):
         a, b = np.asarray(getattr(ref, k)), getattr(got, k).numpy()
         assert a.dtype == b.dtype and np.array_equal(a, b), k
     assert np.array_equal(ref.lm_perm, got.lm_perm) and ref.active == got.active
 
 
+@pytest.mark.parametrize("source", ["torch", "jax"])
+def test_shard_ba_problem_keeps_the_problem_device(source):
+    """A CPU problem (or the JAX package's problem, read with np.asarray as
+    JAX reads it, asked for on the CPU) gives CPU tensors, equal to the JAX
+    partitioner's; the converters default to the card and raise without
+    one, unless the caller asks for the CPU."""
+    from tpuvo_torch.parallel.ba_sharded import sharded_problem_from_numpy
+
+    prob, _ = ba_problem()
+    ref = jbs.shard_ba_problem(prob, 3)
+    if source == "torch":
+        got = shard_ba_problem(problem_from_numpy(np_fields(prob), "cpu"), 3)
+    else:
+        got = sharded_problem_from_numpy(jbs.shard_ba_problem(prob, 3), "cpu")
+    for k in ("poses", "points", "point_valid", "obs_uv", "obs_lm", "obs_valid", "fixed"):
+        a, b = np.asarray(getattr(ref, k)), getattr(got, k)
+        assert b.device.type == "cpu" and np.array_equal(a, b.numpy()), k
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            sharded_problem_from_numpy(got)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            problem_from_numpy(np_fields(prob))
+
+
 def test_shard_edges_matches_jax():
     g = pgo_graph()
     for n in (1, 4, 5, 7):
         ref = jshard_edges(g, n)
-        got = shard_edges(graph_from_numpy(np_fields(g)), n)
+        got = shard_edges(graph_from_numpy(np_fields(g), "cpu"), n)
         for k, v in graph_to_numpy(got).items():
             assert np.array_equal(np.asarray(getattr(ref, k)), v), (n, k)
 
@@ -423,7 +447,7 @@ def test_shard_edges_matches_jax():
 @pytest.mark.parametrize("n_shards", [1, 3, 8])
 def test_gather_points_round_trip(n_shards):
     prob, L = ba_problem()
-    sp = shard_ba_problem(problem_from_numpy(np_fields(prob)), n_shards)
+    sp = shard_ba_problem(problem_from_numpy(np_fields(prob), "cpu"), n_shards)
     pts = gather_points(sp, L)
     assert np.array_equal(pts, np.asarray(prob.points))
     assert np.array_equal(pts, jbs.gather_points(jbs.shard_ba_problem(prob, n_shards), L))
@@ -544,7 +568,7 @@ def test_dist_checkpointer_across_ranks(ranks):
     res = ranks.results()
     prob, L = ba_problem()
     pts = res["ckpt_points"]                      # (S, Ls, 3), the solved shards
-    sp = shard_ba_problem(problem_from_numpy(np_fields(prob)), RANKS)
+    sp = shard_ba_problem(problem_from_numpy(np_fields(prob), "cpu"), RANKS)
     assert pts.shape == tuple(sp.points.shape)
     assert np.array_equal(gather_points(sp._replace(points=torch.as_tensor(pts)), L),
                           res["ba_solve_points"])
@@ -574,7 +598,7 @@ def test_world1_match_equals_unsharded(world1, method):
 
 def test_world1_ba_equals_unsharded(world1):
     prob, L = ba_problem()
-    tp = problem_from_numpy(np_fields(prob))
+    tp = problem_from_numpy(np_fields(prob), "cpu")
     cfg = BAConfig(**BA_CFG)
     K = torch.as_tensor(EngineConfig().K())
     sp, stats = sharded_ba_solve(world1[0], shard_ba_problem(tp, 1), K, W_PX, H_PX, cfg)
@@ -593,7 +617,7 @@ def test_world1_ba_equals_unsharded(world1):
 
 
 def test_world1_pgo_equals_unsharded(world1):
-    g = graph_from_numpy(np_fields(pgo_graph()))
+    g = graph_from_numpy(np_fields(pgo_graph()), "cpu")
     got, gs = sharded_pgo_solve(world1[1], g, iterations=PGO_ITERS)
     ref, rs = pgo_solve(g, iterations=PGO_ITERS)
     np.testing.assert_allclose(got.poses.numpy(), ref.poses.numpy(), atol=1e-5)

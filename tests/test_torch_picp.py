@@ -162,13 +162,19 @@ def test_corr_idx_gather_and_unrolled_variants():
         assert int(rt.num_inliers) == int(rj.num_inliers), fn
 
 
-def test_wrapper_rejects_annealing_on_cuda_only():
-    """The kernel has no annealing schedule; the CPU path (plain solver) does."""
+def test_wrapper_rejects_annealing_on_cuda_only(monkeypatch):
+    """The annealed schedule on CPU tensors: the wrapper runs the plain
+    solver's schedule (no launch), and the kernel's arguments carry the
+    schedule (flag and multiplier) for CUDA tensors."""
     X, Z, V, _, T0 = make_problem()
-    cfg = PICPConfig(annealed_kernel=True)
+    cfg = PICPConfig(annealed_kernel=True, anneal_mult=3.0)
     n0 = tk.launches
     res = tk.solve_cuda(K, t(T0), t(X), t(Z), None, t(V), W, H, cfg)
-    assert torch.isfinite(res.T).all() and tk.launches == n0
+    ref = tpicp.solve(t(K), t(T0), t(X), t(Z), None, t(V), W, H, cfg)
+    assert all(torch.equal(a, b) for a, b in zip(res, ref)) and tk.launches == n0
+    args = kernel_args(monkeypatch, t(T0), t(X), t(Z), None, t(V), cfg)
+    assert args[-3:-1] == (1, 3.0)  # anneal, anneal_mult
+    assert kernel_args(monkeypatch, t(T0), t(X), t(Z), None, t(V), PICPConfig())[-3:-1] == (0, 4.0)
 
 
 @pytest.mark.parametrize("batch", [(), (3,)])
@@ -183,7 +189,9 @@ def test_kernel_outputs_have_the_plain_dtypes(batch):
         assert o.dtype == r.dtype and o.shape == batch + r.shape
 
 
-def test_prepare_rejects_what_the_kernel_does_not_take():
+def test_prepare_rejects_what_the_kernel_does_not_take(monkeypatch):
+    """prepare refuses more points than a block stages and tensors off the
+    card, and accepts the annealed schedule (it reaches the launch)."""
     X, Z, V, _, T0 = make_problem()
     n = tk.MAX_POINTS + 1
     big = lambda a: t(np.resize(a, (n,) + a.shape[1:]))
@@ -191,6 +199,27 @@ def test_prepare_rejects_what_the_kernel_does_not_take():
         tk.prepare(K, t(T0), big(X), big(Z), None, big(V), W, H, PICPConfig())
     with pytest.raises(ValueError, match="kernel argument on cpu"):
         tk.prepare(K, t(T0), t(X), t(Z), None, t(V), W, H, PICPConfig())
+    args = kernel_args(monkeypatch, t(T0), t(X), t(Z), None, t(V),
+                       PICPConfig(annealed_kernel=True))
+    assert args[-3] == 1
+
+
+def kernel_args(monkeypatch, T0, X, Z, idx, V, cfg, thr=None):
+    """The argument tuple prepare hands the kernel library for these CPU
+    tensors (the device check and the library stubbed; nothing launches)."""
+    import types
+
+    calls = []
+    with monkeypatch.context() as mp:
+        mp.setattr(tk.build, "check_device", lambda *a: None)
+        mp.setattr(tk.build, "library", lambda: types.SimpleNamespace(
+            tpuvo_picp_solve=lambda *a: calls.append(a) or 0))
+        mp.setattr(torch.cuda, "current_stream", lambda dev: types.SimpleNamespace(cuda_stream=0))
+        n0 = tk.launches
+        launch, _ = tk.prepare(K, T0, X, Z, idx, V, W, H, cfg, thr)
+        launch()
+        assert tk.launches == n0 + 1
+    return calls[0]
 
 
 def test_kernel_per_problem_thresholds():
@@ -259,3 +288,132 @@ def test_solve_runs_no_round_after_every_problem_is_done(monkeypatch, conv):
     rounds.clear()
     got = tpicp.solve(t(K), t(T0[:1]), t(X[:1]), t(Z[:1]), None, t(V[:1]), W, H, cfg)
     assert int(got.iterations[0]) == 1 and len(rounds) == 1
+
+
+# --- the annealed schedule, the unrolled cap and the kernel's packing -----
+def anneal_batch():
+    """Six noisy problems started far enough off that the first rounds'
+    median chi lies above every threshold below; ten rows of each 40 px
+    off (chi 3200)."""
+    probs = [make_problem(noise=0.5, pose_err=0.08, seed=s) for s in range(6)]
+    X, Z, V, _, T0 = (np.stack(a) for a in zip(*probs))
+    Z[:, :10] += 40.0
+    return X, Z, V, T0
+
+
+@pytest.mark.parametrize("per_problem", [False, True])
+def test_annealed_batch_matches_jax_vmap(per_problem):
+    """The plain annealed solve over a batch (a threshold per problem, or
+    the config's) against jax.vmap of tpuvo's solve: T to 1e-3, inliers
+    exact, iterations +/-1 (the rel-chi stop under another summation
+    order).  The schedule must matter: without it the solves differ."""
+    import jax
+
+    X, Z, V, T0 = anneal_batch()
+    thr = np.array([50.0, 200.0, 1000.0, 50.0, 200.0, 1000.0], np.float32)
+    cfg = dict(annealed_kernel=True, convergence_threshold=1e-4, kernel_threshold=200.0)
+    jthr = jnp.asarray(thr) if per_problem else jnp.full(6, 200.0, jnp.float32)
+    ref = jax.vmap(lambda T, x, z, v, h: jpicp.solve(jnp.asarray(K), T, x, z, None, v, W, H,
+                                                     JPICPConfig(**cfg), h))(
+        *map(jnp.asarray, (T0, X, Z, V)), jthr)
+    tthr = t(thr) if per_problem else None
+    got = tpicp.solve(t(K), t(T0), t(X), t(Z), None, t(V), W, H, PICPConfig(**cfg), tthr)
+    np.testing.assert_allclose(got.T.numpy(), np.asarray(ref.T), atol=1e-3)
+    assert np.array_equal(got.num_inliers.numpy(), np.asarray(ref.num_inliers))
+    assert np.abs(got.iterations.numpy() - np.asarray(ref.iterations)).max() <= 1
+    assert np.array_equal(got.converged.numpy(), np.asarray(ref.converged))
+    flat = tpicp.solve(t(K), t(T0), t(X), t(Z), None, t(V), W, H,
+                       PICPConfig(**dict(cfg, annealed_kernel=False)), tthr)
+    assert not torch.equal(flat.T, got.T)
+    assert not torch.equal(flat.iterations, got.iterations)
+
+
+@pytest.mark.parametrize("rounds", [1, 3, 8])
+def test_unrolled_is_solve_with_max_iterations(rounds):
+    """solve_unrolled(rounds=r) is bit for bit solve with max_iterations=r
+    (the same stop rule, finished problems frozen): the card runs the
+    unrolled driver as the kernel with that cap."""
+    X, Z, V, T0 = round_count_batch()
+    for thr in (None, t(np.array([3000.0, 100.0, 3000.0, 500.0, 3000.0, 3000.0], np.float32))):
+        cfg = PICPConfig(convergence_threshold=1e-4, min_num_inliers=MIN_INLIERS)
+        got = tpicp.solve_unrolled(t(K), t(T0), t(X), t(Z), None, t(V), W, H, cfg, thr,
+                                   rounds=rounds)
+        ref = tpicp.solve(t(K), t(T0), t(X), t(Z), None, t(V), W, H,
+                          PICPConfig(convergence_threshold=1e-4, min_num_inliers=MIN_INLIERS,
+                                     max_iterations=rounds), thr)
+        assert all(torch.equal(a, b) for a, b in zip(got, ref)), rounds
+        assert int(got.iterations.max()) == rounds
+
+
+@pytest.mark.parametrize("form", ["per-observation", "gathered"])
+def test_packing_of_multi_axis_batches_is_bit_equal(form):
+    """pack_args / unpack_result, the kernel's view of a (2, 3)-batched
+    solve (corr_idx None, or gathered from a map per problem, with a
+    threshold per problem): the plain solve on the packed (6,) batch,
+    unpacked, equals the plain solve on the (2, 3) batch bit for bit."""
+    X, Z, V, _, T0 = (np.stack(a) for a in zip(*[make_problem(seed=s) for s in range(6)]))
+    thr = t(np.array([1000.0, 3000.0, 200.0, 1000.0, 3000.0, 200.0], np.float32).reshape(2, 3))
+    idx = None
+    if form == "gathered":
+        rng = np.random.default_rng(1)
+        world = rng.normal(0, 5, (6, 300, 3)).astype(np.float32)
+        idx = np.stack([rng.choice(300, 128, replace=False) for _ in range(6)])
+        world[np.arange(6)[:, None], idx] = X
+        X, idx = world, t(idx.reshape(2, 3, 128))
+    shape = lambda a: t(a.reshape((2, 3) + a.shape[1:]))
+    args = (shape(T0), shape(X), shape(Z), idx, shape(V))
+    cfg = PICPConfig(convergence_threshold=1e-4)
+    ref = tpicp.solve(t(K), *args, W, H, cfg, thr)
+    lead, *packed, pthr = tk.pack_args(*args, thr)
+    assert lead == (2, 3) and packed[0].shape == (6, 4, 4) and pthr.shape == (6,)
+    got = tk.unpack_result(tpicp.solve(t(K), *packed, W, H, cfg, pthr), lead)
+    assert all(a.shape == b.shape and torch.equal(a, b) for a, b in zip(got, ref))
+    # one problem: no leading axis, and a scalar threshold tensor broadcast
+    lead, *packed, pthr = tk.pack_args(*(a[1, 2] for a in args[:3]),
+                                       None if idx is None else idx[1, 2], args[4][1, 2],
+                                       thr[1, 2])
+    assert lead == () and packed[0].shape == (1, 4, 4) and pthr.shape == (1,)
+    one = tk.unpack_result(tpicp.solve(t(K), *packed, W, H, cfg, pthr), lead)
+    assert one.T.shape == (4, 4) and one.iterations.shape == ()
+    # lanes of a larger tensor stay views (the kernel reads them at their stride)
+    big = torch.zeros((6, 130, 2))
+    lane_view = big[:, 1:129]
+    _, _, _, uv, _, _, _ = tk.pack_args(shape(T0).reshape(6, 4, 4), t(X).reshape(6, -1, 3),
+                                        lane_view, None, t(V))
+    assert uv.data_ptr() == lane_view.data_ptr() and uv.stride() == lane_view.stride()
+
+
+def test_kernel_args_take_K_on_the_card_without_a_host_read(monkeypatch):
+    """K as a host array goes to the kernel as four floats and a NULL
+    pointer; a K tensor's values are not read on the host when it is on the
+    card (its pointer goes instead: checked on the card)."""
+    X, Z, V, _, T0 = make_problem()
+    args = kernel_args(monkeypatch, t(T0), t(X), t(Z), None, t(V), PICPConfig())
+    fx, fy, cx, cy = args[20:24]
+    assert args[6] is None and (fx, fy, cx, cy) == (float(K[0, 0]), float(K[1, 1]),
+                                                   float(K[0, 2]), float(K[1, 2]))
+
+
+def kernel_route(monkeypatch, card: bool):
+    """Every PICP solve routed as on a CUDA device (card=True) or on the
+    CPU, with no CUDA tensor: ``solve_cuda``'s device test is fixed, the
+    kernel's ``prepare`` records what it was handed and answers with the
+    plain solve of exactly that (so the caller goes on), and the plain
+    loops record their calls.  Returns {"kernel": [...], "plain": [...]}."""
+    seen = {"kernel": [], "plain": []}
+    solve = tpicp.solve
+    monkeypatch.setattr(tk, "on_card", lambda _t: card)
+
+    def prepare(K_, T0, world, uv, idx, valid, w, h, cfg, thr=None):
+        seen["kernel"].append(dict(cfg=cfg, thr=thr, batch=tuple(T0.shape[:-2]),
+                                   gathered=idx is not None, K=K_))
+        res = solve(torch.as_tensor(K_, dtype=torch.float32), T0, world, uv, idx, valid,
+                    w, h, cfg, thr)
+        return (lambda: None), res
+
+    monkeypatch.setattr(tk, "prepare", prepare)
+    for name in ("solve", "solve_unrolled"):
+        fn = getattr(tpicp, name)
+        monkeypatch.setattr(tpicp, name, lambda *a, _f=fn, _n=name, **kw:
+                            (seen["plain"].append(_n), _f(*a, **kw))[1])
+    return seen

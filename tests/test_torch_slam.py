@@ -73,7 +73,7 @@ def test_slam_step_from_jax_carry(branch):
     R = tc.local_ba_window
     n_ba = 0
     for i in range(F - 1):
-        ct = tslam.carry_from_numpy(carry)
+        ct = tslam.carry_from_numpy(carry, "cpu")
         cj2, lj = jslam.slam_step_jit(carry, jvo.frame_of(seq, i), jvo.frame_of(seq, i + 1), jc)
         ct2, lt = tslam.slam_step(ct, tvo.frame_at(frames, i), tvo.frame_at(frames, i + 1), tc)
         fired = ct.k >= R and ct.k % 2 == 0
@@ -117,7 +117,7 @@ def test_online_slam_matches_batch_and_carry_round_trip():
     assert s.n_local_ba_runs == diag["n_local_ba_runs"] and s.frame_count == n
     with pytest.raises(RuntimeError, match="max_frames"):
         s.step(tvo.frame_of(sub, 1, "cpu"))
-    back = tslam.carry_from_numpy(tslam.carry_to_numpy(s._carry))
+    back = tslam.carry_from_numpy(tslam.carry_to_numpy(s._carry), "cpu")
     for a, b in zip(back, s._carry):
         if isinstance(a, int):
             assert a == b
@@ -133,7 +133,7 @@ def test_slam_strided_window_slots():
     JAX's ``idxs = k - S·(W-1-i)`` and its gather of ``idxs % R``."""
     cfg = EngineConfig(local_ba_window=4, local_ba_stride=2, map_capacity=16)
     W, S, R, F = 4, 2, 8, 40
-    state = tstate.empty_state(cfg)
+    state = tstate.empty_state(cfg, "cpu")
     for k in range(R, F - 1):
         carry = tslam.SLAMCarry(
             state, tlie.se3_exp(torch.arange(F, dtype=torch.float32)[:, None] * torch.ones(6) * 1e-2),

@@ -161,7 +161,7 @@ def test_validate_state_raises_like_jax(run, corruption):
     with pytest.raises(jchecks.StateValidationError) as ej:
         jchecks.validate_state(jstate.VOState(**{k: jnp.asarray(v) for k, v in bad.items()}))
     with pytest.raises(checks.StateValidationError) as et:
-        checks.validate_state(state_from_numpy(bad))
+        checks.validate_state(state_from_numpy(bad, "cpu"))
     assert str(et.value) == str(ej.value)
 
 
@@ -237,7 +237,8 @@ def test_write_outputs_byte_identical(run, tmp_path):
     res = jeval.evaluate(poses.numpy(), seq.gt_pose, jc)
     js = jax_state(state)
     jeval.write_outputs(str(tmp_path / "jax"), res, js, jc)
-    teval.write_outputs(str(tmp_path / "port"), res, state_from_numpy(js), EngineConfig(**KW))
+    teval.write_outputs(str(tmp_path / "port"), res, state_from_numpy(js, "cpu"),
+                        EngineConfig(**KW))
     for f in ("estimated_trajectory.txt", "estimated_trajectory_scaled.txt", "errors.txt",
               "estimated_world_points.txt"):
         a, b = (tmp_path / "jax" / f).read_bytes(), (tmp_path / "port" / f).read_bytes()

@@ -75,7 +75,7 @@ def test_append_to_map_matches_jax(reuse):
     sj = jstate.VOState(**{k: jnp.asarray(v) for k, v in fields.items()})
     outj = jvo._append_to_map(sj, jnp.asarray(xyz), jnp.asarray(desc), jnp.asarray(ids),
                               jnp.asarray(ids + 1), jnp.asarray(mask), reuse_slots=reuse)
-    st = tstate.state_from_numpy(fields)
+    st = tstate.state_from_numpy(fields, "cpu")
     outt = tvo._append_to_map(st, torch.as_tensor(xyz), torch.as_tensor(desc),
                               torch.as_tensor(ids), torch.as_tensor(ids + 1),
                               torch.as_tensor(mask), reuse_slots=reuse)
@@ -136,7 +136,7 @@ def test_track_step_from_jax_state(branch):
     sj, _ = jvo.bootstrap_jit(jax.random.PRNGKey(42), jvo.frame_of(seq, 0), jvo.frame_of(seq, 1), jc)
     frames = tvo.frames_of(seq, 0, F, "cpu")
     for i in range(F - 1):
-        st = tstate.state_from_numpy(sj)
+        st = tstate.state_from_numpy(sj, "cpu")
         sj2, lj = jvo.track_step_jit(sj, jvo.frame_of(seq, i), jvo.frame_of(seq, i + 1), jc)
         st2, lt = tvo.track_step(st, tvo.frame_at(frames, i), tvo.frame_at(frames, i + 1), tc)
         np.testing.assert_allclose(lt.pose.numpy(), np.asarray(lj.pose), atol=1e-4,
@@ -167,11 +167,11 @@ def test_make_tracker_matches_jax():
     frames = tvo.frames_of(seq, 0, F, "cpu")
     curr = tvo.Frame(*(x[:F - 1] for x in frames))
     nxt = tvo.Frame(*(x[1:] for x in frames))
-    st, lt = tvo.make_tracker(tc)(tstate.state_from_numpy(sj), curr, nxt)
+    st, lt = tvo.make_tracker(tc)(tstate.state_from_numpy(sj, "cpu"), curr, nxt)
     np.testing.assert_allclose(lt.pose.numpy(), np.asarray(lj.pose), atol=1e-3)
     for k in LOG_COUNTS:
         assert np.array_equal(getattr(lt, k).numpy(), np.asarray(getattr(lj, k))), k
-    st2, lt2 = tvo.scan_tracker(tstate.state_from_numpy(sj), curr, nxt, tc)
+    st2, lt2 = tvo.scan_tracker(tstate.state_from_numpy(sj, "cpu"), curr, nxt, tc)
     assert all(torch.equal(a, b) for a, b in zip(lt, lt2))
     assert all(torch.equal(a, b) for a, b in zip(st, st2))
 
@@ -184,6 +184,96 @@ def test_annealed_with_pallas_backend_raises():
     state, _ = tvo.bootstrap(tvo.make_generator(1), tvo.frame_at(fr, 0), tvo.frame_at(fr, 1), tc)
     with pytest.raises(ValueError, match="annealed"):
         tvo.track_step(state, tvo.frame_at(fr, 0), tvo.frame_at(fr, 1), tc)
+
+
+# ------------------------------------------------ PICP solves by device --
+DISPATCH = {  # picp config, lane thresholds
+    "xla": (dict(), None),
+    "unrolled": (dict(unrolled_rounds=3), None),
+    "pallas": (dict(backend="pallas"), None),
+    "annealed, lane thresholds": (dict(backend="pallas", annealed_kernel=True),
+                                  [500.0, 3000.0]),
+    "annealed xla": (dict(annealed_kernel=True), None),
+}
+
+
+def dispatch_run(monkeypatch, card, picp, thresholds):
+    """Two tracked frames (or the sweep's lanes) with every PICP solve
+    routed as on the card or on the CPU; returns (what was routed, poses)."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from test_torch_picp import kernel_route
+
+    _, tc = both_cfgs(mode="fixed", map_capacity=256, max_obs=64, picp=picp)
+    seq = make_seq(tc, frames=4, noise=0.3)
+    with monkeypatch.context() as mp:
+        seen = kernel_route(mp, card)
+        if thresholds is None:
+            _, _, poses, _ = tvo.run_sequence(seq, tc, device="cpu")
+        else:
+            _, _, poses = tvo.run_threshold_sweep(seq, thresholds, tc, device="cpu")
+    return seen, poses
+
+
+@pytest.mark.parametrize("name", sorted(DISPATCH))
+def test_picp_solves_launch_the_kernel_on_the_card_only(monkeypatch, name):
+    """Every track_step branch on a CUDA device hands its solve to the
+    kernel (once a step, with the schedule the branch means: the unrolled
+    driver as max_iterations = rounds and no annealing, the annealed
+    schedule with the lanes' thresholds) and runs no plain loop; on the
+    CPU the same branch runs the plain loop and never the kernel.  The
+    kernel's stand-in is the plain solve of what it was handed, so the two
+    routes give the same poses bit for bit."""
+    picp, thresholds = DISPATCH[name]
+    card, card_poses = dispatch_run(monkeypatch, True, picp, thresholds)
+    cpu, cpu_poses = dispatch_run(monkeypatch, False, picp, thresholds)
+    steps = card_poses.shape[-3] - 1  # every frame after the first is tracked
+    assert card["plain"] == [] and cpu["kernel"] == []
+    assert len(card["kernel"]) == len(cpu["plain"]) == steps
+    want = "solve_unrolled" if "unrolled_rounds" in picp else "solve"
+    assert set(cpu["plain"]) == {want}
+    for call in card["kernel"]:
+        cfg = call["cfg"]
+        assert call["gathered"]  # gathered from the map by the match's indices
+        assert isinstance(call["K"], np.ndarray)  # the config's host array
+        if "unrolled_rounds" in picp:
+            assert cfg.max_iterations == 3 and not cfg.annealed_kernel
+        else:
+            assert cfg.max_iterations == 50
+            assert cfg.annealed_kernel == picp.get("annealed_kernel", False)
+        if thresholds is None:
+            assert call["thr"] is None and call["batch"] == ()
+        else:
+            assert call["batch"] == (2,) and call["thr"].tolist() == thresholds
+    assert torch.equal(card_poses, cpu_poses)
+
+
+@pytest.mark.parametrize("card", [False, True])
+def test_annealed_pallas_raises_on_either_route_as_in_jax(monkeypatch, card):
+    """backend='pallas' with annealed_kernel=True and no lane thresholds is
+    a config error, as in JAX (tpuvo/engine/vo.py:274-284): it raises on
+    the card route before any launch, and on the CPU."""
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from test_torch_picp import kernel_route
+
+    jc, tc = both_cfgs(mode="fixed", map_capacity=256, max_obs=64,
+                       picp=dict(backend="pallas", annealed_kernel=True))
+    seq = make_seq(tc, frames=3)
+    sj, _ = jvo.bootstrap_jit(jax.random.PRNGKey(1), jvo.frame_of(seq, 0),
+                              jvo.frame_of(seq, 1), jc)
+    with pytest.raises(ValueError, match="annealed"):
+        jvo.track_step(sj, jvo.frame_of(seq, 1), jvo.frame_of(seq, 2), jc)
+    fr = tvo.frames_of(seq, 0, 3, "cpu")
+    state, _ = tvo.bootstrap(tvo.make_generator(1), tvo.frame_at(fr, 0), tvo.frame_at(fr, 1), tc)
+    seen = kernel_route(monkeypatch, card)
+    with pytest.raises(ValueError, match="annealed"):
+        tvo.track_step(state, tvo.frame_at(fr, 1), tvo.frame_at(fr, 2), tc)
+    assert seen == {"kernel": [], "plain": []}
 
 
 # ------------------------------------------------------------ whole runs --

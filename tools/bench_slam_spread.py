@@ -59,7 +59,7 @@ def one_run(dseq, sseq, cfg_slam) -> dict:
 
 def main():
     runs = int(sys.argv[1]) if len(sys.argv) > 1 else 20
-    vo._check_device("cuda")
+    vo.check_device("cuda")
     cfg_slam = bench.configs("cuda")[2]
     sseq = bench.slam_sequence(cfg_slam)
     dseq = sseq._replace(**{k: torch.as_tensor(getattr(sseq, k), device="cuda")

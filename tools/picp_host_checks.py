@@ -1,6 +1,9 @@
 #!/usr/bin/env python3
-"""The plain PICP solver's host checks on the card, compared across source
-trees (e.g. a commit and its parent).
+"""The plain PICP solver's host checks on the card, and the rates of the
+paths that ran it, compared across source trees (e.g. a commit and its
+parent).  On a tree whose every PICP solve on the card is the kernel, the
+plain solver is measured by calling it directly, and its round counts on
+the paths are empty.
 
     python tools/picp_host_checks.py TREE [TREE ...]
 
@@ -16,8 +19,8 @@ calls).  Per tree, on the card:
     (``cli.main(... --matcher pallas run)`` in process, median of 3 after a
     warm run);
   * cell (c) of phase 10 (B = 256 lanes of the 121-frame sequence, bench.py's
-    configuration: the mxu_bf16 matcher and the plain PICP): B·F / median
-    wall of 3 after a warm run;
+    configuration: the mxu_bf16 matcher and ``picp.backend="xla"``): B·F /
+    median wall of 3 after a warm run;
   * in each warm run, how many GN rounds every plain ``picp.solve`` call ran
     (the most over its problems): {rounds: calls}.
 

@@ -53,9 +53,10 @@ _GRAPH_DTYPES = {"poses": torch.float32, "edges_ij": torch.int64,
                  "edges_T": torch.float32, "edges_w": torch.float32, "fixed": torch.bool}
 
 
-def graph_from_numpy(fields, device="cpu") -> PoseGraph:
-    """PoseGraph from numpy arrays keyed by field name (a mapping, or an
-    object with those attributes — e.g. the JAX package's PoseGraph)."""
+def graph_from_numpy(fields, device="cuda") -> PoseGraph:
+    """PoseGraph on ``device`` (the card by default) from numpy arrays keyed
+    by field name (a mapping, or an object with those attributes — e.g. the
+    JAX package's PoseGraph)."""
     return tuple_from_numpy(PoseGraph, _GRAPH_DTYPES, fields, device)
 
 

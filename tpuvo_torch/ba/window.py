@@ -66,9 +66,10 @@ _PROBLEM_DTYPES = {
 }
 
 
-def problem_from_numpy(fields, device="cpu") -> BAProblem:
-    """BAProblem from numpy arrays keyed by field name (a mapping, or an
-    object with those attributes — e.g. the JAX package's BAProblem)."""
+def problem_from_numpy(fields, device="cuda") -> BAProblem:
+    """BAProblem on ``device`` (the card by default) from numpy arrays keyed
+    by field name (a mapping, or an object with those attributes — e.g. the
+    JAX package's BAProblem)."""
     return tuple_from_numpy(BAProblem, _PROBLEM_DTYPES, fields, device)
 
 

@@ -9,7 +9,7 @@ defaults:
     translational error <= 0.30, plus the per-frame golden gate against
     ``<data>/../output/estimated_trajectory_scaled.txt`` when it exists;
   * latency — ``vo.full_run`` under the latency profile (fused frame
-    matchers, kernel A on the card), one warm run gated on its own ATE, 2
+    matchers, ``picp.backend="pallas"``), one warm run gated on its own ATE, 2
     untimed runs, then ``TPUVO_BENCH_LAT_REPS`` runs each timed alone to a
     synchronize: the median, min and max of F / wall;
   * throughput — ``vo.run_batch`` over ``TPUVO_BENCH_BATCH`` distinct
@@ -20,6 +20,11 @@ defaults:
     every map match), a median of 3 timed runs, then one timed
     ``refine_trajectory_loop``, gated on ate_slam <= 1.0 and ate_refined
     <= 0.2.
+
+On the card every section's PICP solves launch kernel A
+(``ops/cuda/picp_kernel``), whichever ``picp.backend`` its profile names,
+and the refine's loop closure polishes its PnP in one launch; on the CPU
+they run its plain version.
 
 The headline is max(latency, throughput) frames/s; ``vs_baseline`` is it
 over ``CPP_BASELINE_FPS``, zeroed when the gate of the section that
@@ -85,14 +90,16 @@ def configs(device="cuda"):
     """(throughput and gate config, latency profile, SLAM profile) from the
     environment, with the JAX bench's names and defaults.  Where the JAX
     bench keys a default on a non-CPU backend, this keys it on the card:
-    kernel A in the latency profile, kernel B in the SLAM profile."""
+    ``picp.backend="pallas"`` in the latency profile (kernel A runs on the
+    card under "xla" too), kernel B in the SLAM profile."""
     card = _on_card(device)
     cfg = EngineConfig(
         mode=os.environ.get("TPUVO_BENCH_MODE", "fixed"),
         fuse_frame_matchers=os.environ.get("TPUVO_BENCH_FUSED", "0") == "1",
         motion_model_init=os.environ.get("TPUVO_BENCH_MOTION", "0") == "1",
         matcher=MatcherConfig(method=os.environ.get("TPUVO_BENCH_MATCHER", "mxu_bf16")),
-        # rel-chi 1e-4 with the plain GN loop; 2 triangulation polish iterations
+        # rel-chi 1e-4 (kernel A on the card under either backend, as every
+        # PICP solve there); 2 triangulation polish iterations
         picp=PICPConfig(convergence_threshold=1e-4,
                         unrolled_rounds=int(os.environ.get("TPUVO_BENCH_GN_UNROLL", "0")),
                         backend=os.environ.get("TPUVO_BENCH_PICP", "xla")),
@@ -116,7 +123,7 @@ def configs(device="cuda"):
         mode="fixed", n_frames=sf, map_capacity=scap, fuse_frame_matchers=True,
         matcher=MatcherConfig(method=os.environ.get("TPUVO_BENCH_SLAM_MATCHER",
                                           "pallas" if card else "mxu")),
-        # the plain PICP: kernel A is not on the SLAM path
+        # picp.backend "xla", as in JAX: kernel A on the card all the same
         picp=PICPConfig(convergence_threshold=1e-4),
         ba=dataclasses.replace(EngineConfig().ba, max_landmarks=scap),
     )
@@ -293,7 +300,7 @@ def slam(cfg_slam: EngineConfig, device="cuda") -> dict:
 
 def main(device="cuda") -> dict:
     """Run every section on ``device``, print the JSON line, return it."""
-    vo._check_device(device)
+    vo.check_device(device)
     card = _on_card(device)
     cfg, cfg_lat, cfg_slam = configs(device)
     data_dir = os.environ.get("TPUVO_DATA", "data")

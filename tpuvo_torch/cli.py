@@ -24,8 +24,9 @@ printed JSON and files written.
 Everything runs on the card unless ``--device cpu`` is given (the part
 ``JAX_PLATFORMS`` plays for the JAX CLI); without a card the CLI raises, as
 ``run_sequence`` does, and never carries on on the CPU.  ``--matcher pallas``
-runs the hand-written top-2 kernel for every frame's map match.  No flag
-selects the PICP kernel (as in the JAX CLI).
+runs the hand-written top-2 kernel for every frame's map match.  Every
+PICP solve on the card is the hand-written GN kernel, so no flag selects it
+(the JAX CLI has none either).
 
 Launched by ``torchrun`` (``torchrun --nproc_per_node N -m tpuvo_torch
 ...``), the CLI first joins the process group the launcher describes
@@ -382,9 +383,9 @@ def main(argv=None):
     s = sub.add_parser("bench"); s.set_defaults(fn=cmd_bench)
 
     args = p.parse_args(argv)
-    from tpuvo_torch.engine.vo import _check_device
+    from tpuvo_torch.engine.state import check_device
 
-    _check_device(args.device)  # no card: raise before any work
+    check_device(args.device)  # no card: raise before any work
     # a torchrun launch joins its process group (no-op otherwise); a failed
     # join raises
     from tpuvo_torch.parallel.mesh import maybe_distributed_init

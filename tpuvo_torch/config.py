@@ -47,10 +47,14 @@ class PICPConfig:
     """Projective-ICP Gauss-Newton schedule (see tpuvo/config.py for the
     reference line each default comes from).
 
-    backend: "xla" = the plain PyTorch GN loop (``ops/picp.solve``);
-    "pallas" = the whole GN loop as one CUDA kernel
-    (``ops/cuda/picp_kernel.py``) on CUDA tensors, its plain version on CPU
-    tensors.  The kernel has no annealing schedule.
+    backend: "xla" or "pallas", the JAX package's names.  Both launch the
+    whole GN loop as one CUDA kernel (``ops/cuda/picp_kernel.py``) on CUDA
+    tensors — the port's one device program for the loop, as XLA's
+    while_loop is JAX's — and run its plain PyTorch version
+    (``ops/picp.solve``, ``solve_unrolled``) on CPU tensors.  They differ
+    as in JAX: "pallas" ignores ``unrolled_rounds`` and refuses
+    ``annealed_kernel`` without per-lane thresholds; the kernel itself
+    runs the annealed schedule and the unrolled cap.
     """
 
     kernel_threshold: float = 3000.0

@@ -36,7 +36,17 @@
 //   * each input has its own lane stride (the batched tracker's frames and
 //     maps are lanes of larger tensors; 0 shares one array among all
 //     problems), and an optional (B,) array gives each problem its own
-//     robust threshold (the threshold sweep), else the scalar one.
+//     robust threshold (the threshold sweep), else the scalar one;
+//   * K is four scalars, or read from a (3, 3) array on the card (a caller
+//     whose K is a CUDA tensor then needs no host read);
+//   * the annealed schedule (PICPConfig.annealed_kernel): before each
+//     round's linearization the threshold is max(thr, anneal_mult * med),
+//     med the lower median of the chi of the staged points that project
+//     in bounds at the current pose (0 when none does).  Each thread
+//     writes its points' chi to a sixth staged row, then ranks each of
+//     its points against all of them (ties broken by index): the point of
+//     rank (n_in_bounds - 1) / 2 is the median.  O(N^2 / 128) compares a
+//     round and two more barriers; exact, no speed work yet.
 // Two runs give the same bits: every sum runs in a fixed order.  Compiled
 // WITHOUT --use_fast_math: the rel-chi stop is knife-edge and approximate
 // sin/cos/sqrt/div would move iteration counts.
@@ -49,7 +59,7 @@ namespace {
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kSums = 30;  // 21 H (upper triangle) + 6 g + chi_in, chi_out, n_in
-constexpr int kStaged = 5;  // floats per staged point: X0, X1, X2, u, v
+constexpr int kStaged = 5;  // floats per staged point: X0, X1, X2, u, v (+ chi when annealed)
 
 // One reduce-scatter level: 2*O values per lane in, O out.  A lane keeps
 // the half selected by its bit O and adds its partner's copy of that half.
@@ -81,6 +91,7 @@ __global__ void __launch_bounds__(kThreads) picp_solve_kernel(
     const uint8_t* __restrict__ valid,   // (B, N), lane stride lane_v
     const float* __restrict__ T0,        // (B, 4, 4)
     const float* __restrict__ thr_b,     // (B,) robust thresholds, or nullptr (thr for all)
+    const float* __restrict__ Kd,        // (3, 3) row-major intrinsics, or nullptr (fx, fy, cx, cy)
     float* __restrict__ T_out,           // (B, 4, 4)
     int32_t* __restrict__ n_in_out,      // (B,)
     float* __restrict__ chi_in_out,      // (B,)
@@ -90,10 +101,11 @@ __global__ void __launch_bounds__(kThreads) picp_solve_kernel(
     int N, int M, int64_t lane_w, int64_t lane_i, int64_t lane_z, int64_t lane_v,
     float fx, float fy, float cx, float cy, float width, float height,
     float thr_all, float damping, float conv, int max_it, int min_inl,
-    int keep_outliers) {
-  extern __shared__ float staged[];            // (kStaged, N): the valid rows, compacted
+    int keep_outliers, int anneal, float anneal_mult) {
+  extern __shared__ float staged[];            // (kStaged + anneal, N): the valid rows, compacted
   __shared__ __align__(16) float part[2][kWarps][32];  // per-warp sums, by round parity
   __shared__ int warp_valid[kWarps];
+  __shared__ float med_buf[2];                 // the annealed median, by round parity
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int b = blockIdx.x;
@@ -101,12 +113,14 @@ __global__ void __launch_bounds__(kThreads) picp_solve_kernel(
   const int64_t* Ib = idx ? idx + b * lane_i : nullptr;
   const float* Zb = uv + b * lane_z;
   const uint8_t* Vb = valid + b * lane_v;
-  const float thr = thr_b ? thr_b[b] : thr_all;
+  const float thr_base = thr_b ? thr_b[b] : thr_all;
+  if (Kd) { fx = Kd[0]; cx = Kd[2]; fy = Kd[4]; cy = Kd[5]; }
   float* sX0 = staged;
   float* sX1 = staged + N;
   float* sX2 = staged + 2 * N;
   float* sU = staged + 3 * N;
   float* sV = staged + 4 * N;
+  float* sChi = staged + 5 * N;  // annealed only
 
   // ---- stage the valid rows once, in index order ----
   int nv = 0;
@@ -148,25 +162,56 @@ __global__ void __launch_bounds__(kThreads) picp_solve_kernel(
   float n_in = 0.f, chi_in = 0.f, chi_out = 0.f;
   bool convd = false;
 
+  // point n at the current pose: camera frame, pixel, and whether it is in
+  // front of the camera and in the image
+#define PICP_PROJECT(n)                                                             \
+  const float X0 = sX0[n], X1 = sX1[n], X2 = sX2[n];                                \
+  const float px = R00 * X0 + R01 * X1 + R02 * X2 + t0;                             \
+  const float py = R10 * X0 + R11 * X1 + R12 * X2 + t1;                             \
+  const float pz = R20 * X0 + R21 * X1 + R22 * X2 + t2;                             \
+  const float iz = 1.0f / (fabsf(pz) > 1e-12f ? pz : 1.0f);                         \
+  const float u = (fx * px + cx * pz) * iz, v = (fy * py + cy * pz) * iz;           \
+  const bool seen = pz > 0.f && u >= 0.f && u <= width - 1.0f && v >= 0.f &&        \
+                    v <= height - 1.0f;                                             \
+  const float eu = u - sU[n], ev = v - sV[n];
+
   while (!done && it < max_it) {
+    float thr = thr_base;
+    if (anneal) {
+      // this round's threshold from the lower median of the in-bounds chi;
+      // med_buf alternates by round parity, so no thread still reads the
+      // slot that thread 0 clears here
+      const int par = it & 1;
+      const float inf = __int_as_float(0x7f800000);
+      for (int n = tid; n < nv; n += kThreads) {
+        PICP_PROJECT(n)
+        sChi[n] = seen ? eu * eu + ev * ev : inf;
+      }
+      if (tid == 0) med_buf[par] = 0.f;
+      __syncthreads();
+      for (int n = tid; n < nv; n += kThreads) {
+        const float c = sChi[n];
+        if (!(c < inf)) continue;
+        int used = 0, rank = 0;
+        for (int j = 0; j < nv; ++j) {
+          const float cj = sChi[j];
+          used += cj < inf;
+          rank += cj < c || (cj == c && j < n);
+        }
+        if (rank == (used - 1) / 2) med_buf[par] = c;
+      }
+      __syncthreads();  // sChi is rewritten only after the next round's barriers
+      thr = fmaxf(thr_base, anneal_mult * med_buf[par]);
+    }
+
     float s[32];
 #pragma unroll
     for (int k = 0; k < 32; ++k) s[k] = 0.f;
 
     for (int n = tid; n < nv; n += kThreads) {
-      const float X0 = sX0[n], X1 = sX1[n], X2 = sX2[n];
-      const float px = R00 * X0 + R01 * X1 + R02 * X2 + t0;
-      const float py = R10 * X0 + R11 * X1 + R12 * X2 + t1;
-      const float pz = R20 * X0 + R21 * X1 + R22 * X2 + t2;
-      const float hx = fx * px + cx * pz;
-      const float hy = fy * py + cy * pz;
-      const float iz = 1.0f / (fabsf(pz) > 1e-12f ? pz : 1.0f);
-      const float u = hx * iz, v = hy * iz;
+      PICP_PROJECT(n)
       // culled rows contribute exactly nothing (the masked-row zeroing)
-      if (!(pz > 0.f && u >= 0.f && u <= width - 1.0f && v >= 0.f && v <= height - 1.0f))
-        continue;
-      const float eu = u - sU[n];
-      const float ev = v - sV[n];
+      if (!seen) continue;
       const float chi = eu * eu + ev * ev;
       const bool inl = chi <= thr;
       if (inl) { s[27] += chi; s[29] += 1.f; } else { s[28] += chi; }
@@ -292,6 +337,7 @@ __global__ void __launch_bounds__(kThreads) picp_solve_kernel(
     chi_out = tot[28];
     ++it;
   }
+#undef PICP_PROJECT
 
   if (tid == 0) {
     float* To = T_out + (int64_t)b * 16;
@@ -311,15 +357,16 @@ __global__ void __launch_bounds__(kThreads) picp_solve_kernel(
 
 extern "C" int tpuvo_picp_solve(
     const void* world, const void* idx, const void* uv, const void* valid,
-    const void* T0, const void* thr_b, void* T_out, void* n_in, void* chi_in, void* chi_out,
-    void* iters, void* converged, int B, int N, int M,
+    const void* T0, const void* thr_b, const void* K, void* T_out, void* n_in, void* chi_in,
+    void* chi_out, void* iters, void* converged, int B, int N, int M,
     int64_t lane_w, int64_t lane_i, int64_t lane_z, int64_t lane_v,
     float fx, float fy, float cx, float cy, float width, float height,
     float thr, float damping, float conv, int max_it, int min_inl,
-    int keep_outliers, void* stream) {
+    int keep_outliers, int anneal, float anneal_mult, void* stream) {
   if (B <= 0) return 0;
   if (lane_w < 0 || lane_i < 0 || lane_z < 0 || lane_v < 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * kStaged * (size_t)N;
+  anneal = anneal ? 1 : 0;
+  const size_t smem = sizeof(float) * (kStaged + anneal) * (size_t)N;
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         picp_solve_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -327,9 +374,9 @@ extern "C" int tpuvo_picp_solve(
   }
   picp_solve_kernel<<<B, kThreads, smem, (cudaStream_t)stream>>>(
       (const float*)world, (const int64_t*)idx, (const float*)uv,
-      (const uint8_t*)valid, (const float*)T0, (const float*)thr_b, (float*)T_out,
-      (int32_t*)n_in, (float*)chi_in, (float*)chi_out, (int32_t*)iters, (uint8_t*)converged,
-      N, M, lane_w, lane_i, lane_z, lane_v, fx, fy, cx, cy, width, height, thr, damping, conv, max_it,
-      min_inl, keep_outliers);
+      (const uint8_t*)valid, (const float*)T0, (const float*)thr_b, (const float*)K,
+      (float*)T_out, (int32_t*)n_in, (float*)chi_in, (float*)chi_out, (int32_t*)iters,
+      (uint8_t*)converged, N, M, lane_w, lane_i, lane_z, lane_v, fx, fy, cx, cy, width, height,
+      thr, damping, conv, max_it, min_inl, keep_outliers, anneal, anneal_mult);
   return (int)cudaGetLastError();
 }

@@ -42,10 +42,11 @@ class SLAMCarry(NamedTuple):
     k: int                   # index of the frame the next step tracks
 
 
-def carry_from_numpy(carry, device="cpu") -> SLAMCarry:
-    """SLAMCarry from the numpy form of either package's carry: a sequence
-    (state, poses_all, buf_lm, buf_valid, buf_uv, n_ba, k) whose state is a
-    VOState-like object or a mapping of numpy arrays."""
+def carry_from_numpy(carry, device="cuda") -> SLAMCarry:
+    """SLAMCarry on ``device`` (the card by default) from the numpy form of
+    either package's carry: a sequence (state, poses_all, buf_lm, buf_valid,
+    buf_uv, n_ba, k) whose state is a VOState-like object or a mapping of
+    numpy arrays."""
     state, poses_all, buf_lm, buf_valid, buf_uv, n_ba, k = carry
     t = lambda x, dt: torch.as_tensor(np.array(x), dtype=dt, device=device)
     return SLAMCarry(state_from_numpy(state, device), t(poses_all, torch.float32),

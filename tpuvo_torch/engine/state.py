@@ -38,9 +38,18 @@ _DTYPES = {
 }
 
 
-def empty_state(cfg: EngineConfig, device="cpu", lanes: int | None = None) -> VOState:
-    """The state before the bootstrap; ``lanes``: a leading lane axis of
-    that size (None: no lane axis)."""
+def check_device(device) -> None:
+    """The entry points and converters run on the card unless the caller
+    asks for the CPU; without a card they raise rather than fall back."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r}: no CUDA device is available "
+                           "(pass device='cpu' to run on the CPU)")
+
+
+def empty_state(cfg: EngineConfig, device="cuda", lanes: int | None = None) -> VOState:
+    """The state before the bootstrap on ``device`` (the card by default);
+    ``lanes``: a leading lane axis of that size (None: no lane axis)."""
+    check_device(device)
     C, D = cfg.map_capacity, cfg.desc_dim
     B = () if lanes is None else (lanes,)
     kw = dict(device=device)
@@ -59,10 +68,12 @@ def empty_state(cfg: EngineConfig, device="cpu", lanes: int | None = None) -> VO
     )
 
 
-def tuple_from_numpy(cls, dtypes: dict, fields, device="cpu"):
-    """A NamedTuple ``cls`` of tensors from arrays keyed by field name (a
-    mapping, or any object with those attributes — e.g. the JAX package's
-    twin of ``cls``); ``dtypes`` maps each field to its tensor dtype."""
+def tuple_from_numpy(cls, dtypes: dict, fields, device="cuda"):
+    """A NamedTuple ``cls`` of tensors on ``device`` (the card by default)
+    from arrays keyed by field name (a mapping, or any object with those
+    attributes — e.g. the JAX package's twin of ``cls``); ``dtypes`` maps
+    each field to its tensor dtype."""
+    check_device(device)
     get = fields.__getitem__ if isinstance(fields, dict) else (lambda k: getattr(fields, k))
     return cls(**{k: torch.as_tensor(np.array(get(k)), dtype=dtypes[k], device=device)
                   for k in cls._fields})
@@ -78,7 +89,7 @@ def tuple_to_numpy(tup) -> dict:
     return {k: to_host(getattr(tup, k)) for k in tup._fields}
 
 
-def state_from_numpy(fields, device="cpu") -> VOState:
+def state_from_numpy(fields, device="cuda") -> VOState:
     """VOState from numpy arrays keyed by field name (see tuple_from_numpy)."""
     return tuple_from_numpy(VOState, _DTYPES, fields, device)
 

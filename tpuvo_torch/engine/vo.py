@@ -12,12 +12,12 @@
     match the current frame against the next (2D-2D)
     triangulate the matches not yet in the map, gate them, append
 
-The frame loop is a Python loop over ``track_step``.  On CUDA tensors with
-``matcher.method="pallas"`` and ``picp.backend="pallas"``, ``track_step``
-makes no host round-trip: no ``.item()``, no ``bool(tensor)``, no
-boolean-mask indexing — map growth and candidate compaction are
-``index_copy_`` scatters into a spare dump row.  (The plain PICP loop
-checks its done flags on the host once per GN round.)
+The frame loop is a Python loop over ``track_step``.  On CUDA tensors
+every PICP solve is the fused kernel (``ops/cuda/picp_kernel.solve_cuda``,
+under either ``picp.backend``), and with ``matcher.method="pallas"``
+``track_step`` makes no host round-trip: no ``.item()``, no
+``bool(tensor)``, no boolean-mask indexing — map growth and candidate
+compaction are ``index_copy_`` scatters into a spare dump row.
 
 Lanes: ``bootstrap``, ``track_step``, ``scan_tracker`` and ``full_run`` take
 an optional leading lane axis B — B distinct sequences tracked together,
@@ -41,9 +41,10 @@ import numpy as np
 import torch
 
 from tpuvo_torch.config import EngineConfig
-from tpuvo_torch.engine.state import FrameLog, VOState, empty_state
-from tpuvo_torch.ops import lie, picp, triangulate, twoview
+from tpuvo_torch.engine.state import FrameLog, VOState, check_device, empty_state
+from tpuvo_torch.ops import lie, triangulate, twoview
 from tpuvo_torch.ops.camera import project_points
+from tpuvo_torch.ops.cuda.picp_kernel import solve_cuda
 from tpuvo_torch.ops.match import match_descriptors, match_descriptors_pair
 
 
@@ -62,14 +63,6 @@ def _tensor(x, dtype, device):
     return torch.as_tensor(x, dtype=dtype, device=device)
 
 
-def _check_device(device) -> None:
-    """The entry points run on the card unless the caller asks for the CPU;
-    without a card they raise rather than fall back."""
-    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device!r}: no CUDA device is available "
-                           "(pass device='cpu' to run on the CPU)")
-
-
 _FIELDS = (("uv", torch.float32), ("desc", torch.float32), ("id_meas", torch.int32),
            ("id_real", torch.int32), ("valid", torch.bool))
 
@@ -77,14 +70,14 @@ _FIELDS = (("uv", torch.float32), ("desc", torch.float32), ("id_meas", torch.int
 def frames_of(seq, lo: int, hi: int, device="cuda") -> Frame:
     """Frames [lo, hi) of a FrameObservations as one stacked Frame on
     ``device`` (the card by default)."""
-    _check_device(device)
+    check_device(device)
     return Frame(*(_tensor(getattr(seq, k)[lo:hi], dt, device) for k, dt in _FIELDS))
 
 
 def lanes_of(seqs, device="cuda") -> Frame:
     """B FrameObservations of equal shape as one lane-batched Frame
     (B, F, N, ...) on ``device``: the input of ``run_batch``."""
-    _check_device(device)
+    check_device(device)
     return Frame(*(_tensor(np.stack([getattr(s, k) for s in seqs]), dt, device)
                    for k, dt in _FIELDS))
 
@@ -296,10 +289,14 @@ def track_step(state: VOState, curr: Frame, nxt: Frame, cfg: EngineConfig,
     else:
         T_prev = state.pose
     T_init = lie.inv_se3(T_prev)  # world-in-camera initial guess
-    solver_args = (state.map_xyz, nxt.uv, m_map.idx, m_map.valid, cfg.width, cfg.height,
-                   cfg.picp)
-    # the kernel takes a threshold per lane; it has no annealing schedule,
-    # which the plain solver runs under a threshold override, as in JAX
+    # One branch per branch of the JAX step.  Each is ``solve_cuda``: on the
+    # card the fused kernel, whose round loop never reads the host (the twin
+    # of JAX's on-device while_loop); on the CPU its plain version.  K goes
+    # as the config's host array.  Lanes with their own thresholds (the
+    # sweep) may anneal under either backend, as JAX's vmapped sweep routes
+    # to its XLA solver, which anneals.
+    solver_args = (cfg.K(), T_init, state.map_xyz, nxt.uv, m_map.idx, m_map.valid,
+                   cfg.width, cfg.height, cfg.picp, kernel_threshold)
     if cfg.picp.backend == "pallas" and not (cfg.picp.annealed_kernel
                                              and kernel_threshold is not None):
         if cfg.picp.annealed_kernel:
@@ -307,14 +304,11 @@ def track_step(state: VOState, curr: Frame, nxt: Frame, cfg: EngineConfig,
                 "picp.backend='pallas' does not support "
                 "annealed_kernel=True; use backend='xla' for the "
                 "annealed schedule")
-        from tpuvo_torch.ops.cuda.picp_kernel import solve_cuda
-
-        sol = solve_cuda(cfg.K(), T_init, *solver_args, kernel_threshold)
+        sol = solve_cuda(*solver_args)
     elif cfg.picp.unrolled_rounds > 0:
-        sol = picp.solve_unrolled(K, T_init, *solver_args, kernel_threshold,
-                                  rounds=cfg.picp.unrolled_rounds)
+        sol = solve_cuda(*solver_args, rounds=cfg.picp.unrolled_rounds)
     else:
-        sol = picp.solve(K, T_init, *solver_args, kernel_threshold)
+        sol = solve_cuda(*solver_args)
     new_pose = lie.inv_se3(sol.T)  # camera-in-world
     # keep the previous pose on match starvation or a non-finite solve
     n_matches = torch.sum(m_map.valid, -1)
@@ -484,10 +478,10 @@ def run_threshold_sweep(seq, thresholds, cfg: EngineConfig | None = None, seed: 
     package's ``run_threshold_sweep``): the whole tracker over one
     sequence with a lane per threshold, e.g. [1000, 3000, 10000] as three
     lanes of one batched run.  The bootstrap does not depend on the
-    threshold: it runs once and every lane starts from it.  With
-    ``picp.backend="pallas"`` each step is one kernel launch for all lanes,
-    each with its own threshold.  Returns (states, logs, poses (B, F, 4,
-    4)) with a leading threshold axis."""
+    threshold: it runs once and every lane starts from it.  On the card
+    each step is one kernel-A launch for all lanes, each with its own
+    threshold (annealed too, under ``picp.annealed_kernel``).  Returns
+    (states, logs, poses (B, F, 4, 4)) with a leading threshold axis."""
     cfg = cfg or EngineConfig()
     F = seq.uv.shape[0]
     frames = frames_of(seq, 0, F, device)

@@ -28,11 +28,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _SIGNATURES = {
-    # world, idx, uv, valid, T0, thresholds (or NULL), then the outputs T,
-    # num_inliers, chi_inliers, chi_outliers, iterations, converged; B, N, M,
-    # the lane strides of world, idx, uv, valid; fx, fy, cx, cy, width,
-    # height, thr, damping, conv, max_it, min_inl, keep_outliers, stream
-    "tpuvo_picp_solve": [_P] * 12 + [_I] * 3 + [_L] * 4 + [_F] * 9 + [_I] * 3 + [_P],
+    # world, idx, uv, valid, T0, thresholds (or NULL), K on the card (or
+    # NULL), then the outputs T, num_inliers, chi_inliers, chi_outliers,
+    # iterations, converged; B, N, M, the lane strides of world, idx, uv,
+    # valid; fx, fy, cx, cy, width, height, thr, damping, conv, max_it,
+    # min_inl, keep_outliers, anneal, anneal_mult, stream
+    "tpuvo_picp_solve": [_P] * 13 + [_I] * 3 + [_L] * 4 + [_F] * 9 + [_I] * 4 + [_F, _P],
     # d1, v1, d2, v2, best, idx, second, accept, B (lanes), N, M, D, the
     # lane strides of d1, v1, d2, v2, query tile, queries per thread, map
     # splits, dist_thr, ratio_thr, stream

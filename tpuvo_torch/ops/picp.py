@@ -12,9 +12,11 @@ The solver runs <= max_iterations rounds and stops when the relative
 improvement of chi_inliers drops below the convergence threshold.
 
 ``solve`` is the plain version of the fused CUDA kernel
-(``ops/cuda/picp_kernel.py``).  Every function takes an optional leading
-batch axis (T (B, 4, 4), points (B, N, 3), ...); batched problems stop
-independently, exactly as JAX's vmapped while_loop freezes finished lanes.
+(``ops/cuda/picp_kernel.py``): the CPU's path and the card's reference, as
+every PICP solve on CUDA tensors goes through ``solve_cuda``.  Every
+function takes an optional leading batch axis (T (B, 4, 4), points (B, N,
+3), ...); batched problems stop independently, exactly as JAX's vmapped
+while_loop freezes finished lanes.
 """
 
 from __future__ import annotations
@@ -176,8 +178,9 @@ def _result(T, c) -> PICPResult:
 def solve(K, T_init, world_pts, image_uv, corr_idx, corr_valid, width: int,
           height: int, cfg: PICPConfig, kernel_threshold=None) -> PICPResult:
     """Full GN loop with the relative-chi stopping rule, as a Python loop
-    (one host check of the done flags per round).  The plain version of the
-    CUDA kernel."""
+    (one host check of the done flags per round: the CPU's path; on the
+    card the kernel runs the loop without the host).  The plain version of
+    the CUDA kernel."""
     X = gather_points(world_pts, corr_idx)  # constant across rounds
     thr_cfg = cfg.kernel_threshold if kernel_threshold is None else kernel_threshold
     c = _init_carry(T_init)

@@ -4,7 +4,8 @@ needed (twin of ``tpuvo/ops/pnp.py``).
 Loop-closure relocalization (``ba/loop.py``) has no initial pose inside
 PICP's basin: the drifted estimate can be tens of meters off.  The
 calibrated Direct Linear Transform solves the projection equations
-globally (one 12x12 ``eigh``), and a short PICP polish reaches GN accuracy.
+globally (one 12x12 ``eigh``), and a short PICP polish reaches GN accuracy
+(``solve_cuda``: one kernel-A launch for the whole batch on the card).
 
 Every function is batched over leading axes (the JAX twin vmaps over loop
 pairs and RANSAC hypotheses); invalid correspondences weight their rows to
@@ -20,8 +21,10 @@ import math
 import torch
 
 from tpuvo_torch.config import PICPConfig
-from tpuvo_torch.ops import lie, picp
+from tpuvo_torch.engine.state import check_device
+from tpuvo_torch.ops import lie
 from tpuvo_torch.ops.camera import project_points_with_cam
+from tpuvo_torch.ops.cuda.picp_kernel import solve_cuda
 
 
 def topk_stable(x, k: int):
@@ -102,9 +105,11 @@ def _reproj_err2(K, T, X, uv):
     return torch.where(p_cam[..., 2] > 0, e2, math.inf)
 
 
-def ransac_uniforms(generator, shape, device="cpu"):
+def ransac_uniforms(generator, shape, device="cuda"):
     """Uniforms in [1e-9, 1) for the hypothesis draws, drawn on the CPU
-    (as ``vo.make_generator`` draws) and moved to ``device``."""
+    (as ``vo.make_generator`` draws) and moved to ``device`` (the card
+    unless the caller asks for the CPU)."""
+    check_device(device)
     u = torch.rand(shape, generator=generator, dtype=torch.float32)
     return torch.clamp(u * (1.0 - 1e-9) + 1e-9, min=1e-9).to(device)
 
@@ -144,7 +149,8 @@ def pnp_ransac(generator, K, X, uv, valid, width: int, height: int,
     T_fit, ok_fit = pnp_dlt(K, X, uv, inl)
     T_fit = torch.where(ok_fit[:, None, None], T_fit, T_best)
     cfg = PICPConfig(max_iterations=polish_iterations, convergence_threshold=1e-6)
-    res = picp.solve(K, T_fit, X, uv, None, inl, width, height, cfg,
+    # the B problems in one kernel-A launch on the card (K read there)
+    res = solve_cuda(K, T_fit, X, uv, None, inl, width, height, cfg,
                      kernel_threshold=9.0 * thr2)
     fin = torch.isfinite(res.T).flatten(-2).all(-1)
     T = torch.where(fin[:, None, None], res.T, T_fit)
@@ -161,7 +167,7 @@ def pnp_solve(K, X, uv, valid, width: int, height: int, polish_iterations: int =
     (T world-in-camera, ok)."""
     T0, ok = pnp_dlt(K, X, uv, valid)
     cfg = PICPConfig(max_iterations=polish_iterations, convergence_threshold=1e-6)
-    res = picp.solve(K, T0, X, uv, None, valid, width, height, cfg,
+    res = solve_cuda(K, T0, X, uv, None, valid, width, height, cfg,
                      kernel_threshold=kernel_threshold)
     fin = torch.isfinite(res.T).flatten(-2).all(-1)
     return torch.where(fin[..., None, None], res.T, T0), ok

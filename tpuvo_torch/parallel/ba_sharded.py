@@ -33,6 +33,7 @@ import torch
 
 from tpuvo_torch.ba.window import BAProblem, BAStats, ba_step
 from tpuvo_torch.config import BAConfig
+from tpuvo_torch.engine.state import check_device, to_host
 from tpuvo_torch.parallel.mesh import all_gather_stack, all_reduce_sum_, axis_info
 
 
@@ -74,13 +75,13 @@ def shard_ba_problem(problem: BAProblem, n_shards: int,
                      obs_pad_to: int | None = None) -> ShardedBAProblem:
     """Host-side partitioner: contiguous landmark blocks -> shards, and each
     observation moves to its landmark's owner (re-padded per (shard, frame)).
-    Returns CPU tensors with all S shards."""
-    poses = np.asarray(problem.poses)
-    points = np.asarray(problem.points)
-    pvalid = np.asarray(problem.point_valid)
-    obs_uv = np.asarray(problem.obs_uv)
-    obs_lm = np.asarray(problem.obs_lm)
-    obs_valid = np.asarray(problem.obs_valid)
+    Reads the problem to the host once (as JAX's ``np.asarray`` does) and
+    returns all S shards on the problem's device (the card for arrays that
+    are not tensors)."""
+    dev = problem.poses.device if isinstance(problem.poses, torch.Tensor) else "cuda"
+    poses, points, pvalid, obs_uv, obs_lm, obs_valid, fixed = (
+        to_host(getattr(problem, k)) for k in
+        ("poses", "points", "point_valid", "obs_uv", "obs_lm", "obs_valid", "fixed"))
     W, N = obs_lm.shape
     L = points.shape[0]
     Ls = -(-L // n_shards)
@@ -135,18 +136,19 @@ def shard_ba_problem(problem: BAProblem, n_shards: int,
 
     return sharded_problem_from_numpy(dict(
         poses=poses, points=pts_sh, point_valid=pv_sh, obs_uv=s_uv, obs_lm=s_lm,
-        obs_valid=s_valid, fixed=np.asarray(problem.fixed), lm_perm=lm_perm,
-        active=active))
+        obs_valid=s_valid, fixed=fixed, lm_perm=lm_perm, active=active), dev)
 
 
-def sharded_problem_from_numpy(fields, device="cpu", shard: int | None = None
+def sharded_problem_from_numpy(fields, device="cuda", shard: int | None = None
                                ) -> ShardedBAProblem:
-    """ShardedBAProblem on ``device`` from numpy arrays keyed by field name
-    (a mapping, or an object with those attributes — e.g. the JAX package's
-    ShardedBAProblem).  ``shard``: keep only that shard's row of the
-    sharded fields (a rank's own part)."""
+    """ShardedBAProblem on ``device`` (the card by default) from arrays
+    keyed by field name (a mapping, or an object with those attributes —
+    e.g. the JAX package's ShardedBAProblem, or a ShardedBAProblem on any
+    device).  ``shard``: keep only that shard's row of the sharded fields
+    (a rank's own part)."""
+    check_device(device)
     get = fields.get if isinstance(fields, dict) else lambda k: getattr(fields, k)
-    arrays = {k: np.asarray(get(k)) for k in _SHARDED_DTYPES}
+    arrays = {k: to_host(get(k)) for k in _SHARDED_DTYPES}
     if shard is not None:
         arrays.update({k: arrays[k][shard:shard + 1] for k in _SHARDED})
     return ShardedBAProblem(

@@ -23,8 +23,7 @@ import warnings
 import numpy as np
 import torch
 
-from tpuvo_torch.engine.state import VOState, state_from_numpy, to_host
-from tpuvo_torch.engine.vo import _check_device
+from tpuvo_torch.engine.state import VOState, check_device, state_from_numpy, to_host
 
 
 def save_state(path: str, state: VOState, frame_idx: int, extra: dict | None = None):
@@ -42,7 +41,7 @@ def load_state(path: str, device="cuda"):
     """Returns (VOState on ``device``, frame_idx, extra dict of numpy
     arrays).  Fields added after a checkpoint was written (``vel``,
     ``map_last_seen``, ``frame_idx``) get the JAX package's defaults."""
-    _check_device(device)
+    check_device(device)
     with np.load(path, allow_pickle=False) as z:
         fields = {k[len("state_"):]: z[k] for k in z.files if k.startswith("state_")}
         if "vel" not in fields:  # checkpoints written before the vel field
