@@ -267,7 +267,7 @@ def stub_port_trackers(mp, rel):
     pose, state = torch.as_tensor(rel[1:]), State(torch.tensor(7))
     mp.setattr(tvo, "bootstrap", lambda *a: (state, None))
     mp.setattr(tvo, "make_tracker", lambda cfg: lambda s, c, n: (s, Log(pose)))
-    mp.setattr(tvo, "full_run", lambda *a: (state, Log(pose)))
+    mp.setattr(tvo, "full_run_jit", lambda *a: (state, Log(pose)))
     mp.setattr(tvo, "run_batch", lambda *a, **kw: None)
 
 

@@ -686,3 +686,48 @@ def test_shard_ba_problem_on_card(dev):
         a, b = getattr(ref, k), getattr(got, k)
         assert a.device.type == "cpu" and b.is_cuda and torch.equal(a, b.cpu()), k
     assert np.array_equal(ref.lm_perm, got.lm_perm) and ref.active == got.active
+
+
+# -------------------------------------------------------------- the graphs --
+def test_capture_of_a_host_read_raises(dev):
+    """A step with a host read (or a host-to-card copy) slipped in does not
+    capture: the capture raises, naming the op, and nothing runs eagerly in
+    its place; the card is usable after it."""
+    from tpuvo_torch.utils import graphs
+
+    x = torch.ones(8, device=dev)
+    prog = graphs.Program("probe", dict(x=x), (x,))
+    c0, r0 = graphs.captures, graphs.replays
+    with pytest.raises(graphs.GraphCaptureError, match="_local_scalar_dense"):
+        prog.replay("host read", lambda b: b["x"] * float(b["x"].sum()))
+    with pytest.raises(graphs.GraphCaptureError):
+        prog.replay("host data", lambda b: b["x"] + torch.tensor([1.0], device=dev))
+    assert not prog.graphs and (graphs.captures, graphs.replays) == (c0, r0)
+    out = prog.replay("fine", lambda b: b["x"] * 2)
+    torch.cuda.synchronize()
+    assert float(out.sum()) == 16.0 and graphs.captures == c0 + 1
+
+
+def test_replayed_scan_equals_eager(dev, monkeypatch):
+    """run_sequence on the card replays the captured step once a frame; its
+    poses and logs are the eager loop's bit for bit, and a second run
+    captures nothing."""
+    from tpuvo_torch.utils import graphs
+
+    cfg = EngineConfig(mode="fixed", map_capacity=256, max_obs=64,
+                       matcher=MatcherConfig(method="pallas"),
+                       picp=PICPConfig(backend="pallas", convergence_threshold=1e-4))
+    world = synthetic.make_world(13, n_landmarks=300, xy_extent=8.0)
+    seq = synthetic.render_sequence(world, synthetic.make_planar_trajectory(10, seed=13), cfg,
+                                    pixel_noise=0.3, seed=13)
+    F = seq.uv.shape[0]
+    r0 = graphs.replays
+    _, logs, poses, _ = vo.run_sequence(seq, cfg, device=dev)
+    c1 = graphs.captures
+    _, logs2, poses2, _ = vo.run_sequence(seq, cfg, device=dev)
+    assert graphs.captures == c1 and graphs.replays == r0 + 2 * (F - 1)
+    monkeypatch.setattr(graphs, "on_card", lambda _t: False)
+    _, ref_logs, ref_poses, _ = vo.run_sequence(seq, cfg, device=dev)
+    assert torch.equal(poses, ref_poses) and torch.equal(poses2, ref_poses)
+    for a, b in zip(logs, ref_logs):
+        assert torch.equal(a, b)

@@ -129,8 +129,8 @@ def test_online_slam_matches_batch_and_carry_round_trip():
 
 def test_slam_strided_window_slots():
     """local_ba_stride=2: the window is every 2nd frame back from k, read
-    from ring slots f % R through torch.roll — the frames and slots of
-    JAX's ``idxs = k - S·(W-1-i)`` and its gather of ``idxs % R``."""
+    from ring slots f % R by gathers at a device k — the frames and slots
+    of JAX's ``idxs = k - S·(W-1-i)`` and its gather of ``idxs % R``."""
     cfg = EngineConfig(local_ba_window=4, local_ba_stride=2, map_capacity=16)
     W, S, R, F = 4, 2, 8, 40
     state = tstate.empty_state(cfg, "cpu")

@@ -8,10 +8,10 @@ defaults:
     (``bootstrap`` + ``make_tracker``) gated on ATE <= 0.25 and mean
     translational error <= 0.30, plus the per-frame golden gate against
     ``<data>/../output/estimated_trajectory_scaled.txt`` when it exists;
-  * latency — ``vo.full_run`` under the latency profile (fused frame
-    matchers, ``picp.backend="pallas"``), one warm run gated on its own ATE, 2
-    untimed runs, then ``TPUVO_BENCH_LAT_REPS`` runs each timed alone to a
-    synchronize: the median, min and max of F / wall;
+  * latency — ``vo.full_run_jit`` (as ``bench.py:188``) under the latency
+    profile (fused frame matchers, ``picp.backend="pallas"``), one warm run
+    gated on its own ATE, 2 untimed runs, then ``TPUVO_BENCH_LAT_REPS`` runs
+    each timed alone to a synchronize: the median, min and max of F / wall;
   * throughput — ``vo.run_batch`` over ``TPUVO_BENCH_BATCH`` distinct
     lanes (each its own 0.25 px pixel noise and RANSAC draw): B·F / the
     mean wall of 5 runs after a warm one;
@@ -24,7 +24,10 @@ defaults:
 On the card every section's PICP solves launch kernel A
 (``ops/cuda/picp_kernel``), whichever ``picp.backend`` its profile names,
 and the refine's loop closure polishes its PnP in one launch; on the CPU
-they run its plain version.
+they run its plain version.  The tracker's and the SLAM step of every
+section is a CUDA graph replayed once a frame (``make_tracker``,
+``full_run_jit``, ``run_batch`` and ``run_sequence_slam`` reach them), as
+the JAX bench times compiled programs; the refine stays eager.
 
 The headline is max(latency, throughput) frames/s; ``vs_baseline`` is it
 over ``CPP_BASELINE_FPS``, zeroed when the gate of the section that
@@ -203,9 +206,10 @@ def accuracy_gate(seq, frames: vo.Frame, cfg: EngineConfig, data_dir: str) -> di
 
 
 def latency_run(frames: vo.Frame, cfg_lat: EngineConfig):
-    """One latency rep: bootstrap + the whole tracker, from a fresh
-    generator at seed 42.  Returns (final state, FrameLog)."""
-    return vo.full_run(vo.make_generator(42), *split(frames), cfg_lat)
+    """One latency rep: bootstrap + the whole tracker (its step a replayed
+    CUDA graph on the card), from a fresh generator at seed 42.  Returns
+    (final state, FrameLog)."""
+    return vo.full_run_jit(vo.make_generator(42), *split(frames), cfg_lat)
 
 
 def latency(seq, frames: vo.Frame, cfg_lat: EngineConfig, reps: int) -> dict:

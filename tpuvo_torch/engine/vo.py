@@ -12,12 +12,26 @@
     match the current frame against the next (2D-2D)
     triangulate the matches not yet in the map, gate them, append
 
-The frame loop is a Python loop over ``track_step``.  On CUDA tensors
-every PICP solve is the fused kernel (``ops/cuda/picp_kernel.solve_cuda``,
-under either ``picp.backend``), and with ``matcher.method="pallas"``
 ``track_step`` makes no host round-trip: no ``.item()``, no
 ``bool(tensor)``, no boolean-mask indexing — map growth and candidate
-compaction are ``index_copy_`` scatters into a spare dump row.
+compaction are ``index_copy_`` scatters into a spare dump row.  On CUDA
+tensors every PICP solve is the fused kernel
+(``ops/cuda/picp_kernel.solve_cuda``, under either ``picp.backend``), and
+the matcher of ``matcher.method="pallas"`` the top-2 kernel.
+
+Compiled programs (the JAX package's ``bootstrap_jit``, ``scan_tracker_jit``,
+``full_run_jit``, ``make_tracker``, ``track_step_jit``): on the card the step
+is captured as a CUDA graph once per (cfg, shapes) (``utils/graphs``) and
+replayed once a frame, both kernels inside it.  ``scan_tracker_jit`` copies
+the state and the stacked frames into the graph's buffers once a call; each
+replay reads its frame pair at a device step counter, writes the new state
+back into the buffers and its log into a stacked log, so a frame costs the
+host one ``cudaGraphLaunch``.  ``track_step_jit`` and ``OnlineVO`` copy one
+frame in a step.  The bootstrap stays eager, once a sequence: its
+``eigh``/``svd`` synchronise on CUDA and its RANSAC draw is made on a CPU
+generator.  On the CPU every entry point runs the eager step.
+``track_step``, ``scan_tracker`` and ``bootstrap`` stay the eager functions
+the graphs are compared with, as the un-jitted JAX ones.
 
 Lanes: ``bootstrap``, ``track_step``, ``scan_tracker`` and ``full_run`` take
 an optional leading lane axis B — B distinct sequences tracked together,
@@ -46,6 +60,7 @@ from tpuvo_torch.ops import lie, triangulate, twoview
 from tpuvo_torch.ops.camera import project_points
 from tpuvo_torch.ops.cuda.picp_kernel import solve_cuda
 from tpuvo_torch.ops.match import match_descriptors, match_descriptors_pair
+from tpuvo_torch.utils import graphs
 
 
 class Frame(NamedTuple):
@@ -388,14 +403,19 @@ def track_step(state: VOState, curr: Frame, nxt: Frame, cfg: EngineConfig,
     return state2, log
 
 
+def _poses_only(poses, dim: int) -> FrameLog:
+    """The logs of ``log_stats=False``: poses, the stats zero-filled (as in JAX)."""
+    z = torch.zeros(poses.shape[:dim + 1], device=poses.device)
+    zi = z.to(torch.int32)
+    return FrameLog(poses, zi, z, zi, z > 0.5, zi, zi, zi, zi, zi, zi, zi)
+
+
 def _stack_logs(logs, log_stats: bool, dim: int = 0) -> FrameLog:
     """Per-frame logs stacked along a frame axis at ``dim`` (1 after a
     lane axis)."""
     poses = torch.stack([lg.pose for lg in logs], dim)
-    if not log_stats:  # poses only; the stats are zero-filled, as in JAX
-        z = torch.zeros(poses.shape[:dim + 1], device=poses.device)
-        zi = z.to(torch.int32)
-        return FrameLog(poses, zi, z, zi, z > 0.5, zi, zi, zi, zi, zi, zi, zi)
+    if not log_stats:
+        return _poses_only(poses, dim)
     return FrameLog(poses, *(torch.stack([getattr(lg, f) for lg in logs], dim)
                              for f in FrameLog._fields[1:]))
 
@@ -415,6 +435,137 @@ def scan_tracker(state: VOState, frames_curr: Frame, frames_next: Frame,
     return state, _stack_logs(logs, cfg.log_stats, dim=axis)
 
 
+# ------------------------------------------------------ the captured steps --
+# Each Program (utils/graphs) holds the step's static buffers: the carried
+# state, its frames, the threshold tensor of a sweep and, for a scan, a device
+# step counter ``i`` and the stacked logs.  The bodies below run inside the
+# graph; they write the new state back into the buffers.
+
+
+def _clone(tup):
+    """A copy of a NamedTuple of tensors."""
+    return type(tup)(*(x.clone() for x in tup))
+
+
+def _load(dst, src):
+    """Copy a NamedTuple of tensors into the buffers ``dst``."""
+    for d, s in zip(dst, src):
+        d.copy_(s)
+
+
+def _threshold(thr):
+    return thr.clone() if isinstance(thr, torch.Tensor) else thr
+
+
+def _load_threshold(b, thr):
+    if isinstance(thr, torch.Tensor):
+        b["thr"].copy_(thr)
+
+
+def _at(frames: Frame, axis: int, i) -> Frame:
+    """Frame i of stacked frames along ``axis``, i a (1,) index on the
+    device (read inside the graph)."""
+    return Frame(*(x.index_select(axis, i).squeeze(axis) for x in frames))
+
+
+def _record(b: dict, log: FrameLog, axis: int, row):
+    """Write a step's log into row ``row`` (a (1,) device index) of the
+    stacked logs, made on the first call (a warm-up call, before capture)."""
+    if b["logs"] is None:
+        n = b["steps"]
+        b["logs"] = FrameLog(*(x.new_empty(x.shape[:axis] + (n,) + x.shape[axis:]) for x in log))
+    for s, x in zip(b["logs"], log):
+        s.index_copy_(axis, row, x.unsqueeze(axis))
+
+
+def _scan_body(cfg: EngineConfig, axis: int):
+    def body(b):
+        i = b["i"]
+        state, log = track_step(b["state"], _at(b["curr"], axis, i), _at(b["nxt"], axis, i),
+                                cfg, b["thr"])
+        _record(b, log, axis, i)
+        _load(b["state"], state)
+        i.add_(1)
+
+    return body
+
+
+def scan_tracker_jit(state: VOState, frames_curr: Frame, frames_next: Frame,
+                     cfg: EngineConfig, kernel_threshold=None):
+    """``scan_tracker`` with its step as a CUDA graph on the card (the JAX
+    package's ``scan_tracker_jit``): the state, the frames and a threshold
+    tensor are copied into the graph's buffers, the step is replayed once a
+    frame, and the final state and stacked logs are copied out (a later call
+    overwrites the buffers, not what it returned).  One capture per (cfg,
+    shapes); on the CPU, ``scan_tracker`` itself."""
+    if not graphs.on_card(state.pose):
+        return scan_tracker(state, frames_curr, frames_next, cfg, kernel_threshold)
+    axis = state.pose.dim() - 2
+    thr = kernel_threshold
+
+    def make():
+        b = dict(state=_clone(state), curr=_clone(frames_curr), nxt=_clone(frames_next),
+                 thr=_threshold(thr), i=torch.zeros(1, dtype=torch.int64, device=state.pose.device),
+                 steps=frames_curr.uv.shape[axis], logs=None)
+        return graphs.Program("scan_tracker", b, (*b["state"], b["i"]))
+
+    prog = graphs.cached(("scan_tracker", cfg, graphs.signature(
+        (state, frames_curr, frames_next, thr))), make)
+    b = prog.buffers
+    _load(b["state"], state)
+    _load(b["curr"], frames_curr)
+    _load(b["nxt"], frames_next)
+    _load_threshold(b, thr)
+    b["i"].zero_()
+    body = _scan_body(cfg, axis)
+    for _ in range(b["steps"]):
+        prog.replay(None, body)
+    logs = _clone(b["logs"]) if cfg.log_stats else _poses_only(b["logs"].pose.clone(), axis)
+    return _clone(b["state"]), logs
+
+
+def _step_body(cfg: EngineConfig, return_matches: bool):
+    def body(b):
+        state, *out = track_step(b["state"], b["prev"], b["frame"], cfg, b["thr"],
+                                 return_matches)
+        _load(b["state"], state)
+        _load(b["prev"], b["frame"])  # the next step's current frame
+        return out
+
+    return body
+
+
+def _step_program(state: VOState, curr: Frame, nxt: Frame, cfg: EngineConfig, thr,
+                  return_matches: bool):
+    def make():
+        b = dict(state=_clone(state), prev=_clone(curr), frame=_clone(nxt), thr=_threshold(thr))
+        return graphs.Program("track_step", b, (*b["state"], *b["prev"]))
+
+    return graphs.cached(("track_step", cfg, return_matches,
+                          graphs.signature((state, curr, nxt, thr))), make)
+
+
+def track_step_jit(state: VOState, curr: Frame, nxt: Frame, cfg: EngineConfig,
+                   kernel_threshold=None, return_matches: bool = False):
+    """``track_step`` as a CUDA graph on the card (the JAX package's
+    ``track_step_jit``): the state and the frame pair are copied into the
+    graph's buffers, the step replayed, and the new state and outputs copied
+    out.  One capture per (cfg, shapes, ``return_matches``, threshold form);
+    on the CPU, ``track_step`` itself."""
+    if not graphs.on_card(state.pose):
+        return track_step(state, curr, nxt, cfg, kernel_threshold, return_matches)
+    prog = _step_program(state, curr, nxt, cfg, kernel_threshold, return_matches)
+    prog.claim(None)
+    b = prog.buffers
+    _load(b["state"], state)
+    _load(b["prev"], curr)
+    _load(b["frame"], nxt)
+    _load_threshold(b, kernel_threshold)
+    out = prog.replay(None, _step_body(cfg, return_matches))
+    res = (_clone(b["state"]), _clone(out[0]))
+    return res + (tuple(x.clone() for x in out[1]),) if return_matches else res
+
+
 def full_run(generator, f0: Frame, f1: Frame, frames_curr: Frame,
              frames_next: Frame, cfg: EngineConfig, sample_idx=None):
     """Bootstrap + full-sequence tracking.  Returns (final state, FrameLog)."""
@@ -422,11 +573,21 @@ def full_run(generator, f0: Frame, f1: Frame, frames_curr: Frame,
     return scan_tracker(state, frames_curr, frames_next, cfg)
 
 
+def full_run_jit(generator, f0: Frame, f1: Frame, frames_curr: Frame,
+                 frames_next: Frame, cfg: EngineConfig, sample_idx=None):
+    """``full_run`` as the JAX package's ``full_run_jit`` runs it: the
+    bootstrap (eager: once a sequence, see the module docstring), then
+    ``scan_tracker_jit``.  The bench's latency section."""
+    state, _ = bootstrap(generator, f0, f1, cfg, sample_idx)
+    return scan_tracker_jit(state, frames_curr, frames_next, cfg)
+
+
 def make_tracker(cfg: EngineConfig):
     """The full-sequence tracker for ``cfg`` as a callable
-    ``(state, frames_curr, frames_next) -> (state, logs)`` (the JAX twin's
-    compiled ``scan_tracker``; here the same Python frame loop)."""
-    return lambda s, fc, fn: scan_tracker(s, fc, fn, cfg)
+    ``(state, frames_curr, frames_next) -> (state, logs)``: the JAX twin's
+    compiled ``scan_tracker``, here ``scan_tracker_jit`` (one capture per
+    shape, whatever the number of calls)."""
+    return lambda s, fc, fn: scan_tracker_jit(s, fc, fn, cfg)
 
 
 def make_generator(seed: int) -> torch.Generator:
@@ -438,9 +599,9 @@ def make_generator(seed: int) -> torch.Generator:
 def run_sequence(seq, cfg: EngineConfig | None = None, seed: int = 42,
                  device="cuda", sample_idx=None):
     """End-to-end VO over a FrameObservations on ``device`` (the card by
-    default; ``device="cpu"`` runs the plain versions of the kernels).
-    Returns (final state, logs, poses (F, 4, 4) camera-in-world incl. the
-    identity first pose, diag)."""
+    default; ``device="cpu"`` runs the plain versions of the kernels):
+    ``bootstrap``, then ``scan_tracker_jit``.  Returns (final state, logs,
+    poses (F, 4, 4) camera-in-world incl. the identity first pose, diag)."""
     cfg = cfg or EngineConfig()
     F = seq.uv.shape[0]
     frames = frames_of(seq, 0, F, device)
@@ -448,7 +609,7 @@ def run_sequence(seq, cfg: EngineConfig | None = None, seed: int = 42,
                             frame_at(frames, 1), cfg, sample_idx)
     curr = Frame(*(x[:F - 1] for x in frames))
     nxt = Frame(*(x[1:] for x in frames))
-    state, logs = scan_tracker(state, curr, nxt, cfg)
+    state, logs = scan_tracker_jit(state, curr, nxt, cfg)
     eye = torch.eye(4, dtype=torch.float32, device=logs.pose.device)[None]
     return state, logs, torch.cat([eye, logs.pose], 0), diag
 
@@ -458,15 +619,15 @@ def run_batch(frames: Frame, cfg: EngineConfig | None = None, seed: int = 42,
     """End-to-end VO over B distinct sequences at once: a lane-batched Frame
     (B, F, N, ...) (see ``lanes_of``) on its device, each lane with its
     own RANSAC draw.  The twin of bench.py's throughput mode (the vmapped
-    bootstrap and scan_tracker).  Returns (final state, logs, poses (B, F,
-    4, 4) camera-in-world incl. the identity first pose, diag), each with a
-    leading lane axis."""
+    bootstrap and scan_tracker): ``bootstrap``, then ``scan_tracker_jit``.
+    Returns (final state, logs, poses (B, F, 4, 4) camera-in-world incl. the
+    identity first pose, diag), each with a leading lane axis."""
     cfg = cfg or EngineConfig()
     state, diag = bootstrap(make_generator(seed), lane_frame_at(frames, 0),
                             lane_frame_at(frames, 1), cfg, sample_idx)
     curr = Frame(*(x[:, :-1] for x in frames))
     nxt = Frame(*(x[:, 1:] for x in frames))
-    state, logs = scan_tracker(state, curr, nxt, cfg)
+    state, logs = scan_tracker_jit(state, curr, nxt, cfg)
     B = frames.uv.shape[0]
     eye = torch.eye(4, dtype=torch.float32, device=logs.pose.device).expand(B, 1, 4, 4)
     return state, logs, torch.cat([eye, logs.pose], 1), diag
@@ -480,8 +641,9 @@ def run_threshold_sweep(seq, thresholds, cfg: EngineConfig | None = None, seed: 
     lanes of one batched run.  The bootstrap does not depend on the
     threshold: it runs once and every lane starts from it.  On the card
     each step is one kernel-A launch for all lanes, each with its own
-    threshold (annealed too, under ``picp.annealed_kernel``).  Returns
-    (states, logs, poses (B, F, 4, 4)) with a leading threshold axis."""
+    threshold (annealed too, under ``picp.annealed_kernel``), in the
+    replayed graph of ``scan_tracker_jit``.  Returns (states, logs, poses
+    (B, F, 4, 4)) with a leading threshold axis."""
     cfg = cfg or EngineConfig()
     F = seq.uv.shape[0]
     frames = frames_of(seq, 0, F, device)
@@ -493,9 +655,9 @@ def run_threshold_sweep(seq, thresholds, cfg: EngineConfig | None = None, seed: 
     # on its own); the frames are shared views (lane stride 0)
     states = VOState(*(x.expand((B,) + x.shape).contiguous() for x in state))
     lanes = lambda fr: Frame(*(x.expand((B,) + x.shape) for x in fr))
-    states, logs = scan_tracker(states, lanes(Frame(*(x[:F - 1] for x in frames))),
-                                lanes(Frame(*(x[1:] for x in frames))), cfg,
-                                kernel_threshold=thr)
+    states, logs = scan_tracker_jit(states, lanes(Frame(*(x[:F - 1] for x in frames))),
+                                    lanes(Frame(*(x[1:] for x in frames))), cfg,
+                                    kernel_threshold=thr)
     eye = torch.eye(4, dtype=torch.float32, device=logs.pose.device).expand(B, 1, 4, 4)
     return states, logs, torch.cat([eye, logs.pose], 1)
 
@@ -507,6 +669,13 @@ class OnlineVO:
         vo.start(frame0, frame1)          # two-view bootstrap; frames on the run's device
         for frame in stream:
             pose = vo.step(frame)         # (4, 4) camera-in-world
+        vo.state                          # the VOState (a copy, on the card)
+
+    On the card a step is the graph of ``track_step_jit``, and the session's
+    state stays in the graph's buffers between steps: a step copies the new
+    frame in, replays, and copies the pose out.  Sessions of one config and
+    shape share the graph; one that finds another's state in it asks that
+    session to take its state out first (``release``).
 
     ``checkpoint(path)`` / ``OnlineVO.resume(path, cfg)`` save and restore
     a session (the npz layout of ``run_sequence_chunked``).
@@ -515,27 +684,64 @@ class OnlineVO:
     def __init__(self, cfg: EngineConfig | None = None, seed: int = 42):
         self.cfg = cfg or EngineConfig()
         self._generator = make_generator(seed)
-        self.state: VOState | None = None
+        self._state: VOState | None = None
         self._prev: Frame | None = None
+        self._prog = None  # the graph's Program, on the card
         self.frame_count = 0
+
+    def _holds(self) -> bool:
+        return self._prog is not None and self._prog.owner is self
+
+    def release(self, prog):
+        """Take the session's state out of ``prog``'s buffers (another
+        caller is about to use them)."""
+        self._state = _clone(prog.buffers["state"])
+        self._prev = _clone(prog.buffers["prev"])
+
+    def _set(self, state: VOState, prev: Frame):
+        if self._holds():
+            self._prog.owner = None
+        self._prog = None
+        self._state, self._prev = state, prev
+
+    @property
+    def state(self) -> VOState | None:
+        return _clone(self._prog.buffers["state"]) if self._holds() else self._state
+
+    @property
+    def prev(self) -> Frame | None:
+        """The last frame fed (the next step's current frame)."""
+        return Frame(*self._prog.buffers["prev"]) if self._holds() else self._prev
 
     def start(self, f0: Frame, f1: Frame) -> dict:
         """Two-view bootstrap.  ``frame_count`` counts trajectory poses: 1
         after start (frame 0's identity), +1 per ``step``; frame 1 is used
         by the bootstrap AND as the first tracked frame."""
-        self.state, diag = bootstrap(self._generator, f0, f1, self.cfg)
-        self._prev = f0
+        state, diag = bootstrap(self._generator, f0, f1, self.cfg)
+        self._set(state, f0)
         self.frame_count = 1
         return diag
 
     def step(self, frame: Frame):
         """Track one new frame; returns the (4, 4) camera-in-world pose."""
-        if self.state is None:
+        if self._state is None and not self._holds():
             raise RuntimeError("call start(f0, f1) before step()")
-        self.state, log = track_step(self.state, self._prev, frame, self.cfg)
-        self._prev = frame
+        if not graphs.on_card(frame.uv):
+            self._state, log = track_step(self._state, self._prev, frame, self.cfg)
+            self._prev = frame
+            pose = log.pose
+        else:
+            if self._prog is None:
+                self._prog = _step_program(self._state, self._prev, frame, self.cfg, None, False)
+            b = self._prog.buffers
+            if not self._prog.claim(self):
+                _load(b["state"], self._state)
+                _load(b["prev"], self._prev)
+            _load(b["frame"], frame)
+            log, = self._prog.replay(None, _step_body(self.cfg, False))
+            pose = log.pose.clone()
         self.frame_count += 1
-        return log.pose
+        return pose
 
     def checkpoint(self, path: str):
         """Save the session (state, frame count, the previous frame) in the
@@ -543,7 +749,7 @@ class OnlineVO:
         from tpuvo_torch.utils.checkpoint import save_state
 
         save_state(path, self.state, self.frame_count,
-                   extra={f"prev_{k}": v for k, v in self._prev._asdict().items()})
+                   extra={f"prev_{k}": v for k, v in self.prev._asdict().items()})
 
     @classmethod
     def resume(cls, path: str, cfg: EngineConfig | None = None, seed: int = 42,
@@ -553,24 +759,25 @@ class OnlineVO:
         from tpuvo_torch.utils.checkpoint import load_state
 
         vo = cls(cfg, seed)
-        vo.state, vo.frame_count, extra = load_state(path, device)
-        vo._prev = Frame(*(_tensor(extra[f"prev_{k}"], dt, device) for k, dt in _FIELDS))
+        state, vo.frame_count, extra = load_state(path, device)
+        vo._set(state, Frame(*(_tensor(extra[f"prev_{k}"], dt, device) for k, dt in _FIELDS)))
         return vo
 
 
 def run_sequence_chunked(seq, cfg: EngineConfig | None = None, seed: int = 42,
                          checkpoint_path: str | None = None, checkpoint_every: int = 30,
                          resume: bool = True, max_chunks: int | None = None, device="cuda"):
-    """Checkpointed tracking: ``scan_tracker`` over chunks of
+    """Checkpointed tracking: ``scan_tracker_jit`` over chunks of
     ``checkpoint_every`` steps, with a checkpoint (state + poses so far, the
     JAX package's npz layout) after each.
 
-    The same ``track_step`` calls as ``run_sequence``, chunk edges aside.
-    With ``resume=True`` an existing checkpoint at ``checkpoint_path``
-    restarts tracking mid-sequence, and the trajectory matches the
-    uninterrupted run.  ``max_chunks`` stops after that many chunks (a crash
-    between checkpoints, for resume tests).  Nothing leaves the device
-    inside a chunk: the host pulls the state once per checkpoint.
+    The same ``track_step`` calls as ``run_sequence``, chunk edges aside
+    (on the card one capture per chunk length).  With ``resume=True`` an
+    existing checkpoint at ``checkpoint_path`` restarts tracking
+    mid-sequence, and the trajectory matches the uninterrupted run.
+    ``max_chunks`` stops after that many chunks (a crash between
+    checkpoints, for resume tests).  Nothing leaves the device inside a
+    chunk: the host pulls the state once per checkpoint.
 
     Returns (state, poses (F, 4, 4), step_idx) — step_idx < F-1 when
     stopped by max_chunks.
@@ -592,8 +799,8 @@ def run_sequence_chunked(seq, cfg: EngineConfig | None = None, seed: int = 42,
     chunks_run = 0
     while step < n_steps and (max_chunks is None or chunks_run < max_chunks):
         hi = min(step + checkpoint_every, n_steps)
-        state, logs = scan_tracker(state, Frame(*(x[step:hi] for x in frames)),
-                                   Frame(*(x[step + 1:hi + 1] for x in frames)), cfg)
+        state, logs = scan_tracker_jit(state, Frame(*(x[step:hi] for x in frames)),
+                                       Frame(*(x[step + 1:hi + 1] for x in frames)), cfg)
         pose_chunks.append(logs.pose)
         step = hi
         chunks_run += 1
