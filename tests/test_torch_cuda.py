@@ -9,8 +9,12 @@ there on its own:
 Tolerances: the kernels sum in another order than the plain versions —
 PICP poses atol 1e-4 and iterations +/-1 (knife-edge relative-chi stop),
 match decisions exact and distances atol 1e-5.  The SLAM backend on the
-card against the CPU (``index_add_`` sums in no fixed order there): BA
-poses atol 1e-4, points atol 1e-2; slam_step window poses atol 1e-3.
+card against the CPU (its sums and products run in another order there):
+BA poses atol 1e-4, points atol 1e-2; slam_step window poses atol 1e-3.
+Kernel C (the bootstrap's eigensolvers) against its plain version:
+eigenvalues and singular values within 1e-5 of the largest, vectors of
+separated values (gaps >= 0.375 against a largest of 10) within 1e-4,
+a repeated eigenvalue's space by its projector within 1e-5.
 """
 
 import numpy as np
@@ -22,7 +26,7 @@ from tpuvo_torch.data import synthetic
 from tpuvo_torch.engine import vo
 from tpuvo_torch.engine.state import VOState
 from tpuvo_torch.ops import lie, picp
-from tpuvo_torch.ops.cuda import match_kernel, picp_kernel
+from tpuvo_torch.ops.cuda import match_kernel, picp_kernel, smalleig
 
 pytestmark = pytest.mark.cuda
 CFG = EngineConfig()
@@ -274,8 +278,8 @@ def ba_window_problem(seed=3, W=8, L=400):
 
 def test_ba_solve_on_card_matches_cpu(dev):
     """ba_solve (compacted and capped, LM and fixed damping) on the card vs
-    the CPU.  index_add_ sums in no fixed order on the card: poses atol
-    1e-4, points atol 1e-2; the integer stats exact."""
+    the CPU.  The card's products sum in another order: poses atol 1e-4,
+    points atol 1e-2; the integer stats exact."""
     from tpuvo_torch.ba.window import ba_solve
     from tpuvo_torch.config import BAConfig
 
@@ -709,9 +713,9 @@ def test_capture_of_a_host_read_raises(dev):
 
 
 def test_replayed_scan_equals_eager(dev, monkeypatch):
-    """run_sequence on the card replays the captured step once a frame; its
-    poses and logs are the eager loop's bit for bit, and a second run
-    captures nothing."""
+    """run_sequence on the card replays the captured bootstrap once and the
+    captured step once a frame; its poses and logs are the eager loop's bit
+    for bit, and a second run captures nothing."""
     from tpuvo_torch.utils import graphs
 
     cfg = EngineConfig(mode="fixed", map_capacity=256, max_obs=64,
@@ -725,9 +729,193 @@ def test_replayed_scan_equals_eager(dev, monkeypatch):
     _, logs, poses, _ = vo.run_sequence(seq, cfg, device=dev)
     c1 = graphs.captures
     _, logs2, poses2, _ = vo.run_sequence(seq, cfg, device=dev)
-    assert graphs.captures == c1 and graphs.replays == r0 + 2 * (F - 1)
+    assert graphs.captures == c1 and graphs.replays == r0 + 2 * F
     monkeypatch.setattr(graphs, "on_card", lambda _t: False)
     _, ref_logs, ref_poses, _ = vo.run_sequence(seq, cfg, device=dev)
     assert torch.equal(poses, ref_poses) and torch.equal(poses2, ref_poses)
     for a, b in zip(logs, ref_logs):
         assert torch.equal(a, b)
+
+
+# -------------------------------------------------------------- kernel C --
+def gapped_psd(B, seed, w=None, n=9):
+    """B symmetric PSD (n, n) Q diag(w) Qᵀ: w given, else spread over [1, 10]
+    with gaps >= 0.375."""
+    rng = np.random.default_rng(seed)
+    Q = np.linalg.qr(rng.standard_normal((B, n, n)))[0]
+    if w is None:
+        w = np.cumsum(rng.uniform(0.5, 1.5, (B, n)), -1)
+        w = 1 + 9 * (w - w[:, :1]) / (w[:, -1:] - w[:, :1])
+    w = np.broadcast_to(np.asarray(w, float), (B, n))
+    return torch.as_tensor(np.einsum("bij,bj,bkj->bik", Q, w, Q), dtype=torch.float32)
+
+
+def gapped_mat3(B, seed):
+    """B (3, 3) U diag(s) Vᵀ with s in [2.5, 3.5], [1.5, 2], [0.2, 1]."""
+    rng = np.random.default_rng(seed)
+    U, V = (np.linalg.qr(rng.standard_normal((B, 3, 3)))[0] for _ in range(2))
+    s = rng.uniform((2.5, 1.5, 0.2), (3.5, 2.0, 1.0), (B, 3))
+    return torch.as_tensor(np.einsum("bij,bj,bkj->bik", U, s, V), dtype=torch.float32)
+
+
+@pytest.mark.parametrize("B", [1, 3, 256])
+def test_kernel_c_matches_its_plain_version(dev, B):
+    """sym_eig (9x9) and svd3 (3x3), one launch each for the batch, against
+    torch.linalg's with the same canonical signs."""
+    A, M = gapped_psd(B, B).to(dev), gapped_mat3(B, B).to(dev)
+    n0 = smalleig.launches
+    w, V = smalleig.sym_eig(A)
+    U, S, Vt = smalleig.svd3(M)
+    assert smalleig.launches == n0 + 2
+    wr, Vr = smalleig.sym_eig_reference(A)
+    Ur, Sr, Vtr = smalleig.svd3_reference(M)
+    assert float((w - wr).abs().max()) <= 1e-5 * 10
+    assert float((V - Vr).abs().max()) <= 1e-4
+    assert float((S - Sr).abs().max()) <= 1e-5 * 3.5
+    assert float(max((U - Ur).abs().max(), (Vt - Vtr).abs().max())) <= 1e-4
+
+
+def test_kernel_c_edges(dev):
+    """A repeated eigenvalue (its space), sigma3 = 0 (the null pair and the
+    essential projection), an all-zero matrix ((0, I) and (I, 0, I)) and a
+    NaN matrix (NaN, the other lanes as launched alone)."""
+    A = gapped_psd(3, 1, w=[1, 2, 2, 2, 3, 5, 5, 7, 9]).to(dev)
+    w, V = smalleig.sym_eig(A)
+    wr, Vr = smalleig.sym_eig_reference(A)
+    assert float((w - wr).abs().max()) <= 1e-5 * 9
+    for cols in ([0], [1, 2, 3], [4], [5, 6], [7], [8]):
+        P, Pr = V[..., cols] @ V[..., cols].mT, Vr[..., cols] @ Vr[..., cols].mT
+        assert float((P - Pr).abs().max()) <= 1e-5, cols
+    rng = np.random.default_rng(2)
+    Uq, Vq = (np.linalg.qr(rng.standard_normal((8, 3, 3)))[0] for _ in range(2))
+    E = torch.as_tensor(Uq @ np.diag([1.0, 1.0, 0.0]) @ Vq.swapaxes(-1, -2), dtype=torch.float32,
+                        device=dev)
+    U, S, Vt = smalleig.svd3(E)
+    Ur, Sr, Vtr = smalleig.svd3_reference(E)
+    assert float((S - Sr).abs().max()) <= 1e-5
+    for a, b in ((Vt[..., 2, :], Vtr[..., 2, :]), (U[..., :, 2], Ur[..., :, 2])):
+        assert float((1 - (a * b).sum(-1).abs()).max()) <= 1e-6
+    diag = torch.tensor([1.0, 1.0, 0.0], device=dev)
+    assert float(((U * diag) @ Vt - E).abs().max()) <= 1e-5
+    Z = gapped_psd(4, 3).to(dev)
+    Z[1], Z[2] = 0.0, float("nan")
+    w, V = smalleig.sym_eig(Z)
+    assert bool((w[1] == 0).all()) and torch.equal(V[1], torch.eye(9, device=dev))
+    assert bool(torch.isnan(w[2]).all() and torch.isnan(V[2]).all())
+    alone = smalleig.sym_eig(Z[[0, 3]])
+    assert torch.equal(w[[0, 3]], alone[0]) and torch.equal(V[[0, 3]], alone[1])
+    M = gapped_mat3(4, 4).to(dev)
+    M[1], M[2] = 0.0, float("nan")
+    out = smalleig.svd3(M)
+    eye = torch.eye(3, device=dev)
+    assert torch.equal(out[0][1], eye) and torch.equal(out[2][1], eye) and not out[1][1].any()
+    assert all(bool(torch.isnan(x[2]).all()) for x in out)
+    alone = smalleig.svd3(M[[0, 3]])
+    assert all(torch.equal(x[[0, 3]], y) for x, y in zip(out, alone))
+
+
+def test_bootstrap_jit_on_card_equals_bootstrap(dev):
+    """The bootstrap's graph against the eager bootstrap, bit for bit, at one
+    lane and at three; a call makes no host sync and credits kernels B and C
+    (three launches) per replay."""
+    import warnings
+
+    cfg = EngineConfig(mode="fixed", map_capacity=256, max_obs=64,
+                       matcher=MatcherConfig(method="pallas"))
+    seqs = [synthetic.render_sequence(synthetic.make_world(s, n_landmarks=300, xy_extent=8.0),
+                                      synthetic.make_planar_trajectory(3, seed=s), cfg,
+                                      pixel_noise=0.3, seed=s) for s in (13, 14, 15)]
+    one = vo.frames_of(seqs[0], 0, 2, dev)
+    three = vo.lanes_of(seqs, dev)
+    for pair in ((vo.frame_at(one, 0), vo.frame_at(one, 1)),
+                 (vo.lane_frame_at(three, 0), vo.lane_frame_at(three, 1))):
+        for seed in (42, 43):
+            e = vo.bootstrap(vo.make_generator(seed), *pair, cfg)
+            g = vo.bootstrap_jit(vo.make_generator(seed), *pair, cfg)
+            for a, b in zip((*e[0], *e[1].values()), (*g[0], *g[1].values())):
+                assert torch.equal(a, b)
+        b0, c0 = match_kernel.launches, smalleig.launches
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                vo.bootstrap_jit(vo.make_generator(7), *pair, cfg)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        assert not [w for w in caught if "synchronizing" in str(w.message)]
+        assert (match_kernel.launches - b0, smalleig.launches - c0) == (1, 3)
+
+
+def test_fixed_order_sums_give_the_same_bits_twice(dev):
+    """ba_solve and pgo_solve twice on the card: the same bits (their sums
+    run in a planned order, no atomics); a segmented sum captured in a graph
+    gives the eager bits."""
+    from tpuvo_torch.ba import assembly
+    from tpuvo_torch.ba.posegraph import PoseGraph, odometry_edges, pgo_solve
+    from tpuvo_torch.ba.window import ba_solve
+    from tpuvo_torch.config import BAConfig
+
+    p = type(ba_window_problem())(*(x.to(dev) for x in ba_window_problem()))
+    Kd = torch.as_tensor(K, device=dev)
+    a, b = (ba_solve(p, Kd, 640, 480, BAConfig(iterations=6))[0] for _ in range(2))
+    assert torch.equal(a.poses, b.poses) and torch.equal(a.points, b.points)
+    rng = np.random.default_rng(5)
+    n = 40
+    xi = torch.as_tensor(0.05 * rng.standard_normal((n, 6)).astype(np.float32), device=dev)
+    poses = lie.se3_exp(xi)
+    ij, T, w = odometry_edges(poses)
+    extra = torch.as_tensor(rng.integers(0, n, (60, 2)), device=dev)
+    Tx = lie.inv_se3(poses[extra[:, 0]]) @ poses[extra[:, 1]]
+    graph = PoseGraph(lie.se3_exp(0.5 * xi) @ poses, torch.cat([ij, extra]), torch.cat([T, Tx]),
+                      torch.cat([w, torch.ones(60, device=dev)]), torch.arange(n, device=dev) == 0)
+    g1, g2 = (pgo_solve(graph, iterations=15)[0].poses for _ in range(2))
+    assert torch.equal(g1, g2)
+    idx = torch.as_tensor(rng.integers(0, 500, 4000), device=dev)
+    vals = torch.randn(4000, 6, 3, device=dev)
+    plan = assembly.plan(idx, 500)
+    ref = assembly.segment_sum(vals, plan)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        assembly.segment_sum(vals, plan)
+    torch.cuda.current_stream().wait_stream(side)
+    graph_ = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph_):
+        out = assembly.segment_sum(vals, plan)
+    graph_.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+
+
+def test_capture_cache_evicts_and_recaptures(dev, monkeypatch):
+    """Past the cache's bound an entry is dropped and its memory freed; the
+    key captures again and gives the same bits."""
+    from tpuvo_torch.utils import graphs
+
+    cfg = EngineConfig(mode="fixed", map_capacity=256, max_obs=64,
+                       matcher=MatcherConfig(method="pallas"))
+    world = synthetic.make_world(13, n_landmarks=300, xy_extent=8.0)
+    seq = synthetic.render_sequence(world, synthetic.make_planar_trajectory(12, seed=13), cfg,
+                                    pixel_noise=0.3, seed=13)
+    part = lambda n: type(seq)(*(x[:n] for x in seq))
+    graphs.clear()
+    ref = {n: vo.run_sequence(part(n), cfg, device=dev)[2] for n in (8, 10, 12)}
+    monkeypatch.setattr(graphs, "CACHE_BYTES", 1)  # every capture drops the others
+    graphs.clear()
+    e0 = graphs.evictions
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    for n in (8, 10, 12, 8):
+        assert torch.equal(vo.run_sequence(part(n), cfg, device=dev)[2], ref[n]), n
+        assert len(graphs._cache) <= 2
+    assert graphs.evictions - e0 >= 4
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_reserved()
+    for n in (8, 10, 12):
+        vo.run_sequence(part(n), cfg, device=dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    assert torch.cuda.memory_reserved() <= held + (8 << 20)  # bounded, not one entry a length
+    graphs.clear()

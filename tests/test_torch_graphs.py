@@ -5,8 +5,9 @@ on the CPU.
    sweep's thresholds, ``return_matches``) and the index-based SLAM step
    (with and without the local BA) run under ``graphs.host_sync_guard``,
    which fails on every op that synchronises with the host on CUDA.  The
-   kernels are routed as on the card (``test_torch_picp.kernel_route``) and
-   are opaque to the guard, as a launch is.
+   kernels are routed as on the card (``test_torch_picp.kernel_route``;
+   kernel C, the bootstrap's eigensolvers, through its ``prepare``) and are
+   opaque to the guard, as a launch is.
 2. The graph plumbing, with ``FakeGraph`` standing in for the CUDA graph:
    every graphed entry point is bit-equal to its eager loop, an output is
    never overwritten by a later step, one capture is made per (cfg,
@@ -30,7 +31,7 @@ from tpuvo_torch.config import EngineConfig, MatcherConfig, PICPConfig
 from tpuvo_torch.data import synthetic
 from tpuvo_torch.engine import slam as tslam, vo as tvo
 from tpuvo_torch.engine.state import VOState
-from tpuvo_torch.ops.cuda import match_kernel as tm, picp_kernel as tk
+from tpuvo_torch.ops.cuda import match_kernel as tm, picp_kernel as tk, smalleig as tc
 from tpuvo_torch.utils import graphs
 from tpuvo_torch.utils.graphs import GraphCaptureError, host_sync_guard
 
@@ -55,11 +56,12 @@ def lanes(n=3, frames=F):
 
 @pytest.fixture
 def kernels(monkeypatch):
-    """Both kernels routed as on the card: the PICP solves through
+    """The kernels routed as on the card: the PICP solves through
     ``picp_kernel.prepare`` (``kernel_route``), the matcher through
-    ``match_descriptors_cuda``; each counts a launch as its wrapper does,
-    and computes its plain version out of sight of the guard (a kernel's
-    launch is no aten op)."""
+    ``match_descriptors_cuda``, the eigensolvers through ``smalleig``'s
+    ``prepare_sym_eig`` / ``prepare_svd3``; each counts a launch as its
+    wrapper does, and computes its plain version out of sight of the guard
+    (a kernel's launch is no aten op)."""
     kernel_route(monkeypatch, True)
     prepare, match = tk.prepare, tm.match_descriptors_cuda
 
@@ -79,8 +81,29 @@ def kernels(monkeypatch):
 
     monkeypatch.setattr(tk, "prepare", quiet_prepare)
     monkeypatch.setattr(tm, "match_descriptors_cuda", quiet_match)
+    route_kernel_c(monkeypatch)
     monkeypatch.setattr(tk, "launches", 0)
     monkeypatch.setattr(tm, "launches", 0)
+
+
+def route_kernel_c(monkeypatch):
+    """Kernel C's calls routed as on the card: each ``prepare`` answers
+    with the plain version out of sight of the guard and counts a launch."""
+    monkeypatch.setattr(tc, "on_card", lambda _t: True)
+
+    def quiet(reference):
+        def prepare(A, rotations=None):
+            with _disable_current_modes():
+                res = reference(A)
+
+            def launch():
+                tc.launches += 1
+            return launch, res
+        return prepare
+
+    monkeypatch.setattr(tc, "prepare_sym_eig", quiet(tc.sym_eig_reference))
+    monkeypatch.setattr(tc, "prepare_svd3", quiet(tc.svd3_reference))
+    monkeypatch.setattr(tc, "launches", 0)
 
 
 def _write(dst, src):
@@ -289,13 +312,15 @@ def test_graphed_tracker_equals_eager(fake, entry):
     got = run_entry(entry, seq, fr, lanes3)
     assert_same(got, ref, entry)
     assert launches() == eager_launches
-    assert graphs.captures == 1
-    steps = 3 if entry == "track_step_jit" else F - 1
+    # the entry points that bootstrap do it through bootstrap_jit: its graph too
+    boots = entry not in ("make_tracker", "track_step_jit")
+    assert graphs.captures == 1 + boots
+    steps = (3 if entry == "track_step_jit" else F - 1) + boots
     assert graphs.replays == steps
     tk.launches = tm.launches = 0
     again = run_entry(entry, seq, fr, lanes3)
     assert_same(again, ref, entry)
-    assert graphs.captures == 1 and graphs.replays == 2 * steps
+    assert graphs.captures == 1 + boots and graphs.replays == 2 * steps
     assert launches() == eager_launches
 
 
@@ -307,23 +332,25 @@ def test_scan_outputs_survive_later_calls(fake):
     _, logs_a, poses_a, _ = tvo.run_sequence(a, CFG, device="cpu")
     keep = poses_a.clone(), logs_a.num_inliers.clone()
     _, _, poses_b, _ = tvo.run_sequence(b, CFG, device="cpu")
-    assert graphs.captures == 1
+    assert graphs.captures == 2  # the bootstrap's graph and the scan's
     assert not torch.equal(poses_a, poses_b)
     assert torch.equal(poses_a, keep[0]) and torch.equal(logs_a.num_inliers, keep[1])
 
 
 def test_one_capture_per_config_and_shape(fake):
+    """run_sequence captures the bootstrap and the scan: one each per
+    (cfg, shape); a shorter sequence shares the bootstrap's graph."""
     fake(True)
     seq = make_seq()
     tvo.run_sequence(seq, CFG, device="cpu")
     tvo.run_sequence(seq, CFG, device="cpu")
-    assert graphs.captures == 1
-    tvo.run_sequence(make_seq(frames=F - 2), CFG, device="cpu")    # another shape
     assert graphs.captures == 2
-    tvo.run_sequence(seq, CFG.replace(max_new_landmarks_per_frame=16), device="cpu")
+    tvo.run_sequence(make_seq(frames=F - 2), CFG, device="cpu")    # another scan shape
     assert graphs.captures == 3
+    tvo.run_sequence(seq, CFG.replace(max_new_landmarks_per_frame=16), device="cpu")
+    assert graphs.captures == 5
     tvo.run_sequence(seq, CFG, device="cpu")
-    assert graphs.captures == 3 and len(graphs._cache) == 3
+    assert graphs.captures == 5 and len(graphs._cache) == 5
 
 
 def test_online_vo_equals_eager_and_keeps_its_poses(fake):
@@ -349,12 +376,12 @@ def test_online_vo_equals_eager_and_keeps_its_poses(fake):
         if i % 2:
             got2.append(s2.step(frame(len(got2) + 1)))
     got1_kept = [p.clone() for p in got1]
-    assert graphs.captures == 1
+    assert graphs.captures == 2  # the bootstrap's graph and the step's
     assert_same(got1, ref)
     assert_same(got1, got1_kept)
     assert_same(got2, ref[:len(got2)])
     assert_same(s1.state, e.state)
-    assert graphs.replays == len(got1) + len(got2)
+    assert graphs.replays == 2 + len(got1) + len(got2)
 
 
 def test_online_vo_checkpoint_resume_on_the_graph(fake, tmp_path):
@@ -372,13 +399,13 @@ def test_online_vo_checkpoint_resume_on_the_graph(fake, tmp_path):
     r = tvo.OnlineVO.resume(str(tmp_path / "s.npz"), CFG, device="cpu")
     got += [r.step(frame(i)) for i in range(5, F)]
     assert_same(got, ref)
-    assert graphs.captures == 1
+    assert graphs.captures == 2  # the bootstrap's graph and the step's
 
 
 def test_chunked_with_resume_equals_eager(fake, tmp_path):
     """run_sequence_chunked on the graphs: a crash after two chunks, then a
     resume, gives the uninterrupted eager run; one capture per chunk
-    length (4 and the last, 1)."""
+    length (4 and the last, 1), and the first call's bootstrap."""
     seq = make_seq()
     fake(False)
     ref_state, ref_poses, _ = tvo.run_sequence_chunked(seq, CFG, checkpoint_every=4,
@@ -393,13 +420,14 @@ def test_chunked_with_resume_equals_eager(fake, tmp_path):
     assert step == F - 1
     assert_same(poses, ref_poses)
     assert_same(state, ref_state)
-    assert graphs.captures == 2 and graphs.replays == F - 1
+    assert graphs.captures == 3 and graphs.replays == 1 + F - 1
 
 
 def test_graphed_slam_equals_eager(fake):
     """run_sequence_slam and OnlineSLAM on the two SLAM graphs (with and
-    without the local BA): the eager carry, logs and poses bit for bit, two
-    captures each, one replay a frame, the eager launches."""
+    without the local BA) after the bootstrap's: the eager carry, logs and
+    poses bit for bit, two captures each and one for the bootstrap (which
+    both share), one replay a frame, the eager launches."""
     n = 12
     seq = make_seq(SLAM_CFG, frames=n)
     fake(False)
@@ -414,7 +442,7 @@ def test_graphed_slam_equals_eager(fake):
     assert_same(got, ref)
     assert launches() == eager_launches
     assert ref[3]["n_local_ba_runs"] > 0
-    assert graphs.captures == 2 and graphs.replays == n - 1
+    assert graphs.captures == 3 and graphs.replays == n
     s = tslam.OnlineSLAM(SLAM_CFG, max_frames=n)
     s.start(tvo.frame_of(seq, 0, "cpu"), tvo.frame_of(seq, 1, "cpu"))
     s_poses = [s.step(tvo.frame_of(seq, i, "cpu")) for i in range(1, n)]
@@ -422,7 +450,7 @@ def test_graphed_slam_equals_eager(fake):
     assert_same(s.poses, e.poses)
     assert_same(s.carry, e.carry)
     assert s.n_local_ba_runs == e.n_local_ba_runs and s.frame_count == n
-    assert graphs.captures == 4
+    assert graphs.captures == 5
     with pytest.raises(RuntimeError, match="max_frames"):
         s.step(tvo.frame_of(seq, 1, "cpu"))
 

@@ -10,8 +10,10 @@
   * gauge: ``fixed`` poses (pose 0 at least); robust kernel: the
     saturating sqrt(thr/chi) weight of PICP, per edge on chi = rᵀr
 
-H is assembled with ``index_add_`` into (F, F) 6x6 blocks and solved with
-one damped Cholesky of the (6F, 6F) system.  The LM loop carries every
+H is assembled into (F, F) 6x6 blocks by fixed-order segmented sums
+(``ba/assembly``: the edges' targets sorted once per solve, so two runs give
+the same bits on the card) and solved with one damped Cholesky of the
+(6F, 6F) system.  The LM loop carries every
 value through ``torch.where``, so a solve makes no host round-trip.
 """
 
@@ -21,6 +23,7 @@ from typing import NamedTuple
 
 import torch
 
+from tpuvo_torch.ba import assembly
 from tpuvo_torch.engine.state import tuple_from_numpy, tuple_to_numpy
 from tpuvo_torch.ops import lie
 from tpuvo_torch.ops.linalg_small import cholesky_solve_nan
@@ -87,9 +90,22 @@ def _edge_lin(T_i, T_j, Z_ij):
     return r, J[..., :6], J[..., 6:]
 
 
-def linearize_pgo(graph: PoseGraph, kernel_threshold: float):
+def assembly_plans(graph: PoseGraph):
+    """The summation order of ``linearize_pgo``'s sums for this graph's
+    edges: (H's blocks (i,i), (j,j), (i,j), (j,i) of every edge, in that
+    order, by target block; b's (i, j) by target pose).  Planned once per
+    solve."""
+    F = graph.poses.shape[0]
+    ii = graph.edges_ij[:, 0].long()
+    jj = graph.edges_ij[:, 1].long()
+    return (assembly.plan(torch.cat([ii * F + ii, jj * F + jj, ii * F + jj, jj * F + ii]), F * F),
+            assembly.plan(torch.cat([ii, jj]), F))
+
+
+def linearize_pgo(graph: PoseGraph, kernel_threshold: float, plans=None):
     """All-edge linearization -> (H (F, F, 6, 6), b (F, 6), robust chi,
-    inlier count)."""
+    inlier count).  ``plans``: ``assembly_plans(graph)``, made here when not
+    given."""
     F = graph.poses.shape[0]
     ii = graph.edges_ij[:, 0].long()
     jj = graph.edges_ij[:, 1].long()
@@ -107,10 +123,10 @@ def linearize_pgo(graph: PoseGraph, kernel_threshold: float):
     bi = torch.einsum("eki,ek,e->ei", Ji, r, w)
     bj = torch.einsum("eki,ek,e->ei", Jj, r, w)
 
-    z = lambda *s: torch.zeros(s, dtype=r.dtype, device=r.device)
-    H = (z(F * F, 6, 6).index_add_(0, ii * F + ii, Hii).index_add_(0, jj * F + jj, Hjj)
-         .index_add_(0, ii * F + jj, Hij).index_add_(0, jj * F + ii, Hij.mT)).reshape(F, F, 6, 6)
-    b = z(F, 6).index_add_(0, ii, bi).index_add_(0, jj, bj)
+    # not index_add_, whose atomics sum in no fixed order on the card
+    by_block, by_pose = assembly_plans(graph) if plans is None else plans
+    H = assembly.segment_sum(torch.cat([Hii, Hjj, Hij, Hij.mT]), by_block).reshape(F, F, 6, 6)
+    b = assembly.segment_sum(torch.cat([bi, bj]), by_pose)
 
     chi_rob = torch.sum(torch.where(active, torch.clamp(chi, max=kernel_threshold), 0.0))
     n_inl = torch.sum(active & (chi <= kernel_threshold)).to(torch.int32)
@@ -170,8 +186,9 @@ def pgo_solve(graph: PoseGraph, iterations: int = 20, kernel_threshold: float = 
     chi_prev = chi_of(poses)
     lam = torch.full((), damping_init, dtype=torch.float32, device=dev)
     n_inl = torch.zeros((), dtype=torch.int32, device=dev)
+    plans = assembly_plans(graph)  # the edges are the solve's: sorted once
     for _ in range(iterations):
-        H, b, _, n_inl = linearize_pgo(graph._replace(poses=poses), kernel_threshold)
+        H, b, _, n_inl = linearize_pgo(graph._replace(poses=poses), kernel_threshold, plans)
         if reduce is not None:
             H, b, n_inl = _reduce_system(H, b, n_inl, reduce)
         dx = _solve_system(H, b, graph.fixed, lam)

@@ -12,8 +12,10 @@ Formulation — classic visual BA:
   * gauge: ``fixed`` poses are pinned (rows/cols zeroed, diagonal 1).
 
 Every per-observation quantity is one batched pass over (W, N); the
-per-landmark blocks are assembled with ``index_add_`` (the JAX twin's
-``segment_sum``) and S is one large matrix product over the landmark axis.
+per-landmark blocks are assembled by fixed-order segmented sums
+(``ba/assembly``, the JAX twin's ``segment_sum``; the order is planned once
+per solve, so two runs give the same bits on the card) and S is one large
+matrix product over the landmark axis.
 The Levenberg-Marquardt loop carries every value through ``torch.where``
 on a tensor ``accept``, so a solve makes no host round-trip on the card.
 """
@@ -25,6 +27,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from tpuvo_torch.ba import assembly
 from tpuvo_torch.config import BAConfig, EngineConfig
 from tpuvo_torch.engine.state import tuple_from_numpy, tuple_to_numpy
 from tpuvo_torch.ops import lie
@@ -123,16 +126,31 @@ def _gather_obs(problem: BAProblem):
     return lm, problem.points[lm], problem.obs_valid & problem.point_valid[lm]
 
 
-def linearize_ba(problem: BAProblem, K, width, height, cfg: BAConfig):
+def assembly_plans(problem: BAProblem):
+    """The summation order of ``linearize_ba``'s landmark sums for this
+    problem's topology (its observations' landmark ids): (by landmark, by
+    landmark and frame).  Planned once per solve."""
+    W, N = problem.obs_lm.shape
+    L = problem.points.shape[0]
+    lm = _gather_obs(problem)[0].reshape(-1)
+    by_lm = assembly.plan(lm, L)
+    fidx = torch.arange(W, device=lm.device)[:, None].expand(W, N).reshape(-1)
+    # the stable sort by landmark keeps each landmark's observations in
+    # (frame, slot) order, so it sorts landmark * W + frame as well
+    return by_lm, assembly.plan(lm * W + fidx, L * W, order=by_lm.order)
+
+
+def linearize_ba(problem: BAProblem, K, width, height, cfg: BAConfig, plans=None):
     """Assemble all Schur ingredients in batched passes.
 
     Returns (Hpp (W,6,6), bp (W,6), Hll (L,3,3), bl (L,3),
     Wfl (L,W,6,3) coupling blocks, stats).  ``cfg.assembly`` "segsum" and
-    "onehot" name two TPU assemblies of the same sums; both are one
-    ``index_add_`` here (JAX's own tests hold the two equal)."""
-    W, N = problem.obs_lm.shape
+    "onehot" name two TPU assemblies of the same sums; both are the one
+    fixed-order segmented sum here (JAX's own tests hold the two equal).
+    ``plans``: ``assembly_plans(problem)``, made here when not given."""
+    W = problem.obs_lm.shape[0]
     L = problem.points.shape[0]
-    lm, X, valid = _gather_obs(problem)
+    _, X, valid = _gather_obs(problem)
     A, B, e, w, chi, ok, inlier = _per_obs_blocks(
         K, problem.poses, X, problem.obs_uv, valid, width, height,
         cfg.huber_threshold, cfg.keep_outliers, cfg.cull_bounds)
@@ -142,17 +160,13 @@ def linearize_ba(problem: BAProblem, K, width, height, cfg: BAConfig):
     blB = torch.einsum("fnki,fnk,fn->fni", B, e, w)    # (W, N, 3)
     Wb = torch.einsum("fnki,fnkj,fn->fnij", A, B, w)   # (W, N, 6, 3)
 
-    # index_add_ on the card sums in no fixed order (atomics): two card
-    # runs of one problem differ in the last bits, and an LM accept test
-    # near a tie can grow that into a different step
-    dev, dt = problem.points.device, problem.points.dtype
-    lm_flat = lm.reshape(-1)
-    Hll = torch.zeros((L, 3, 3), dtype=dt, device=dev).index_add_(
-        0, lm_flat, HB.reshape(-1, 3, 3))
-    bl = torch.zeros((L, 3), dtype=dt, device=dev).index_add_(0, lm_flat, blB.reshape(-1, 3))
-    fidx = torch.arange(W, device=dev)[:, None].expand(W, N).reshape(-1)
-    Wfl = torch.zeros((L * W, 6, 3), dtype=dt, device=dev).index_add_(
-        0, lm_flat * W + fidx, Wb.reshape(-1, 6, 3)).reshape(L, W, 6, 3)
+    # not index_add_, whose atomics sum in no fixed order on the card: two
+    # runs of one problem would differ in the last bits, and an LM accept
+    # test near a tie can grow that into a different step
+    by_lm, by_lm_frame = assembly_plans(problem) if plans is None else plans
+    Hll = assembly.segment_sum(HB.reshape(-1, 3, 3), by_lm)
+    bl = assembly.segment_sum(blB.reshape(-1, 3), by_lm)
+    Wfl = assembly.segment_sum(Wb.reshape(-1, 6, 3), by_lm_frame).reshape(L, W, 6, 3)
 
     stats = BAStats(
         chi=torch.sum(chi * (w > 0) * torch.clamp(w, max=1.0)),
@@ -242,16 +256,18 @@ def _reduce_fused(S, b_red, stats: BAStats, reduce):
                                           num_obs=buf[2, n + 1].to(torch.int32))
 
 
-def ba_step(problem: BAProblem, K, width, height, cfg: BAConfig, damping=None, reduce=None):
+def ba_step(problem: BAProblem, K, width, height, cfg: BAConfig, damping=None, reduce=None,
+            plans=None):
     """One Levenberg-damped GN iteration; ``damping`` (a float or a 0-d
-    tensor) overrides cfg.damping.
+    tensor) overrides cfg.damping; ``plans``: ``assembly_plans(problem)``
+    (the solve's topology), made here when not given.
 
     ``reduce``: a sum over the ranks that share the poses (the sharded
     solver's all_reduce), given a landmark shard as ``problem``: the reduced
     camera system and the statistics are summed in one fused buffer before
     the solve, so every rank takes the same pose step."""
     damping = cfg.damping if damping is None else damping
-    Hpp, bp, Hll, bl, Wfl, stats = linearize_ba(problem, K, width, height, cfg)
+    Hpp, bp, Hll, bl, Wfl, stats = linearize_ba(problem, K, width, height, cfg, plans)
     S, b_red, Hll_inv = schur_parts(Hpp, bp, Hll, bl, Wfl, damping)
     if reduce is not None:
         S, b_red, stats = _reduce_fused(S, b_red, stats, reduce)
@@ -333,12 +349,13 @@ def ba_solve(problem: BAProblem, K, width, height, cfg: BAConfig, compact: bool 
 
     dev = problem.points.device
     zero_i = torch.zeros((), dtype=torch.int32, device=dev)
+    plans = assembly_plans(prob)  # the topology is the solve's: sorted once
     if cfg.lm_adaptive:
         chi_prev = eval_robust_chi(prob, K, width, height, cfg)
         stats = BAStats(chi_prev, zero_i, zero_i)
         lam = torch.full((), cfg.damping_init, dtype=torch.float32, device=dev)
         for _ in range(cfg.iterations):
-            prob_new, stats_new = ba_step(prob, K, width, height, cfg, lam)
+            prob_new, stats_new = ba_step(prob, K, width, height, cfg, lam, plans=plans)
             chi_new = eval_robust_chi(prob_new, K, width, height, cfg)
             finite = (torch.isfinite(chi_new) & torch.isfinite(prob_new.poses).all()
                       & torch.isfinite(prob_new.points).all())
@@ -353,7 +370,7 @@ def ba_solve(problem: BAProblem, K, width, height, cfg: BAConfig, compact: bool 
     else:
         stats = BAStats(torch.zeros((), dtype=torch.float32, device=dev), zero_i, zero_i)
         for _ in range(cfg.iterations):
-            prob, stats = ba_step(prob, K, width, height, cfg)
+            prob, stats = ba_step(prob, K, width, height, cfg, plans=plans)
 
     if use_compact:
         # scatter back; window.py drops the unused slots (index L) with

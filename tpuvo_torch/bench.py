@@ -181,7 +181,7 @@ def accuracy_gate(seq, frames: vo.Frame, cfg: EngineConfig, data_dir: str) -> di
     single-sequence run.  Returns its metrics, ``accuracy_ok`` (with the
     golden gate), the golden keys and the final state."""
     f0, f1, curr, nxt = split(frames)
-    state0, _ = vo.bootstrap(vo.make_generator(42), f0, f1, cfg)
+    state0, _ = vo.bootstrap_jit(vo.make_generator(42), f0, f1, cfg)
     state, logs = vo.make_tracker(cfg)(state0, curr, nxt)
     res = evaluate(_with_identity(logs.pose), seq.gt_pose, cfg)
     acc = metrics_dict(res)

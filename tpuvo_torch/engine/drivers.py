@@ -119,8 +119,8 @@ def run_triangulate_test(seq: FrameObservations, world, cfg: EngineConfig | None
     comparison against world.dat.  sample_idx: as ``vo.bootstrap``'s."""
     cfg = cfg or EngineConfig()
     fr = vo.frames_of(seq, 0, 2, device)
-    state, _ = vo.bootstrap(vo.make_generator(seed), vo.frame_at(fr, 0), vo.frame_at(fr, 1),
-                            cfg, sample_idx)
+    state, _ = vo.bootstrap_jit(vo.make_generator(seed), vo.frame_at(fr, 0), vo.frame_at(fr, 1),
+                                cfg, sample_idx)
     n = int(state.map_count)
     ids = to_host(state.map_id_real)[:n]
     pts = to_host(state.map_xyz)[:n]

@@ -314,8 +314,8 @@ def run_sequence_slam(seq, cfg: EngineConfig | None = None, seed: int = 42,
     _check_evict_age(cfg)
     F = seq.uv.shape[0]
     frames = vo.frames_of(seq, 0, F, device)
-    state, diag = vo.bootstrap(vo.make_generator(seed), vo.frame_at(frames, 0),
-                               vo.frame_at(frames, 1), cfg)
+    state, diag = vo.bootstrap_jit(vo.make_generator(seed), vo.frame_at(frames, 0),
+                                   vo.frame_at(frames, 1), cfg)
     carry = init_carry(state, F, frames.uv.shape[1], cfg)
     if graphs.on_card(carry.poses_all):
         prog = _program("run_sequence_slam", carry, dict(frames=frames), cfg)
@@ -377,7 +377,7 @@ class OnlineSLAM:
 
     def start(self, f0: vo.Frame, f1: vo.Frame) -> dict:
         _check_evict_age(self.cfg)
-        state, diag = vo.bootstrap(self._generator, f0, f1, self.cfg)
+        state, diag = vo.bootstrap_jit(self._generator, f0, f1, self.cfg)
         if self._holds():
             self._prog.owner = None
         self._prog = None
@@ -397,7 +397,7 @@ class OnlineSLAM:
             self._prev = frame
             pose = self._carry.poses_all[self.frame_count]
         else:
-            if self._prog is None:
+            if self._prog is None or not self._prog.live:  # (dropped by the cache)
                 self._prog = _program("slam_step", c, dict(prev=self._prev, frame=frame),
                                       self.cfg)
             b = self._prog.buffers

@@ -27,11 +27,14 @@ the state and the stacked frames into the graph's buffers once a call; each
 replay reads its frame pair at a device step counter, writes the new state
 back into the buffers and its log into a stacked log, so a frame costs the
 host one ``cudaGraphLaunch``.  ``track_step_jit`` and ``OnlineVO`` copy one
-frame in a step.  The bootstrap stays eager, once a sequence: its
-``eigh``/``svd`` synchronise on CUDA and its RANSAC draw is made on a CPU
-generator.  On the CPU every entry point runs the eager step.
-``track_step``, ``scan_tracker`` and ``bootstrap`` stay the eager functions
-the graphs are compared with, as the un-jitted JAX ones.
+frame in a step.  ``bootstrap_jit`` is the bootstrap's graph, one replay a
+sequence: its eigensolvers are kernel C (``ops/cuda/smalleig``), and its
+RANSAC uniforms are drawn on the host generator and copied in before the
+replay, so a seed draws the same hypotheses on the CPU and on the card.
+Every entry point bootstraps through it.  On the CPU every entry point runs
+the eager functions.  ``track_step``, ``scan_tracker`` and ``bootstrap`` stay
+the eager functions the graphs are compared with, as the un-jitted JAX
+ones.
 
 Lanes: ``bootstrap``, ``track_step``, ``scan_tracker`` and ``full_run`` take
 an optional leading lane axis B — B distinct sequences tracked together,
@@ -216,6 +219,9 @@ def _append_to_map(state: VOState, xyz, desc, id_real, id_meas, new_mask,
     )
 
 
+_DIAG = ("T_boot", "n_matches", "n_ransac_inliers", "n_map_points")
+
+
 def bootstrap(generator, f0: Frame, f1: Frame, cfg: EngineConfig,
               sample_idx=None) -> Tuple[VOState, dict]:
     """Two-view initialization.  Returns the initial state (pose = identity)
@@ -226,6 +232,18 @@ def bootstrap(generator, f0: Frame, f1: Frame, cfg: EngineConfig,
     hypotheses.  sample_idx: optional ((B,) H, 8) indices that replace the
     draw.
     """
+    uniforms = None
+    if sample_idx is None:
+        uniforms = twoview.hypothesis_uniforms(generator, f0.valid.shape,
+                                               cfg.ransac.num_hypotheses).to(f0.uv.device)
+    state, diag = _bootstrap(f0, f1, cfg, sample_idx, uniforms)
+    return state, dict(zip(_DIAG, diag))
+
+
+def _bootstrap(f0: Frame, f1: Frame, cfg: EngineConfig, sample_idx, uniforms):
+    """The bootstrap given its RANSAC draw on the frames' device, as indices
+    or as the draw's uniforms: no host read, so ``bootstrap_jit``'s graph
+    captures it.  Returns (state, the diagnostics in ``_DIAG``'s order)."""
     dev = f0.uv.device
     K = _K(cfg, dev)
     res = match_descriptors(
@@ -235,7 +253,7 @@ def bootstrap(generator, f0: Frame, f1: Frame, cfg: EngineConfig,
     )
     uv2 = _take_rows(f1.uv, res.idx)
     T_boot, rres, _ = twoview.bootstrap_pose(
-        generator, K, f0.uv, uv2, res.valid, cfg.ransac, sample_idx)
+        None, K, f0.uv, uv2, res.valid, cfg.ransac, sample_idx, uniforms)
     # triangulate ALL matches (no inlier mask — the reference's quirk)
     pts, _ = triangulate.triangulate_two_view(
         K, torch.eye(4, dtype=torch.float32, device=dev), T_boot, f0.uv, uv2,
@@ -244,13 +262,7 @@ def bootstrap(generator, f0: Frame, f1: Frame, cfg: EngineConfig,
     state, n_added, _, _ = _append_to_map(
         empty_state(cfg, dev, lanes=f0.uv.shape[0] if f0.uv.dim() == 3 else None), pts,
         f0.desc, f0.id_real, f0.id_meas, res.valid)
-    diag = {
-        "T_boot": T_boot,
-        "n_matches": torch.sum(res.valid, -1),
-        "n_ransac_inliers": rres.num_inliers,
-        "n_map_points": n_added,
-    }
-    return state, diag
+    return state, (T_boot, torch.sum(res.valid, -1), rres.num_inliers, n_added)
 
 
 def track_step(state: VOState, curr: Frame, nxt: Frame, cfg: EngineConfig,
@@ -566,6 +578,52 @@ def track_step_jit(state: VOState, curr: Frame, nxt: Frame, cfg: EngineConfig,
     return res + (tuple(x.clone() for x in out[1]),) if return_matches else res
 
 
+def bootstrap_jit(generator, f0: Frame, f1: Frame, cfg: EngineConfig, sample_idx=None):
+    """``bootstrap`` as a CUDA graph on the card (the JAX package's
+    ``bootstrap_jit``): the frames are copied into the graph's buffers and
+    the RANSAC draw with them, as uniforms drawn on the host generator into
+    pinned memory (the same draw as ``bootstrap``'s) or as the given
+    ``sample_idx``; one replay (the match, kernel B under
+    ``matcher.method="pallas"``, the RANSAC with kernel C, the
+    triangulation and the map append), then the state and the diagnostics
+    copied out.  One capture per (cfg, shapes, ``sample_idx`` given or not);
+    on the CPU, ``bootstrap`` itself."""
+    if not graphs.on_card(f0.uv):
+        return bootstrap(generator, f0, f1, cfg, sample_idx)
+    dev = f0.uv.device
+    H = cfg.ransac.num_hypotheses
+
+    def make():
+        b = dict(f0=_clone(f0), f1=_clone(f1))
+        if sample_idx is None:
+            b["u"] = torch.empty(f0.valid.shape[:-1] + (H, f0.valid.shape[-1]), device=dev)
+        else:
+            b["idx"] = torch.empty(sample_idx.shape, dtype=torch.int64, device=dev)
+        return graphs.Program("bootstrap", b, ())
+
+    prog = graphs.cached(("bootstrap", cfg, graphs.signature((f0, f1, sample_idx))), make)
+    b = prog.buffers
+    _load(b["f0"], f0)
+    _load(b["f1"], f1)
+    if sample_idx is None:
+        # a fresh pinned block each call: the host allocator reuses it only
+        # once the copy has run
+        host = torch.empty(b["u"].shape, pin_memory=dev.type == "cuda")
+        b["u"].copy_(twoview.hypothesis_uniforms(generator, f0.valid.shape, H, out=host),
+                     non_blocking=True)
+    else:
+        b["idx"].copy_(sample_idx, non_blocking=True)
+    state, diag = prog.replay(None, _bootstrap_body(cfg))
+    return _clone(state), {k: v.clone() for k, v in zip(_DIAG, diag)}
+
+
+def _bootstrap_body(cfg: EngineConfig):
+    def body(b):
+        return _bootstrap(b["f0"], b["f1"], cfg, b.get("idx"), b.get("u"))
+
+    return body
+
+
 def full_run(generator, f0: Frame, f1: Frame, frames_curr: Frame,
              frames_next: Frame, cfg: EngineConfig, sample_idx=None):
     """Bootstrap + full-sequence tracking.  Returns (final state, FrameLog)."""
@@ -575,10 +633,11 @@ def full_run(generator, f0: Frame, f1: Frame, frames_curr: Frame,
 
 def full_run_jit(generator, f0: Frame, f1: Frame, frames_curr: Frame,
                  frames_next: Frame, cfg: EngineConfig, sample_idx=None):
-    """``full_run`` as the JAX package's ``full_run_jit`` runs it: the
-    bootstrap (eager: once a sequence, see the module docstring), then
-    ``scan_tracker_jit``.  The bench's latency section."""
-    state, _ = bootstrap(generator, f0, f1, cfg, sample_idx)
+    """``full_run`` as the JAX package's ``full_run_jit`` runs it:
+    ``bootstrap_jit``, then ``scan_tracker_jit`` (on the card one bootstrap
+    replay, then the scan's, with no host read between them).  The bench's
+    latency section."""
+    state, _ = bootstrap_jit(generator, f0, f1, cfg, sample_idx)
     return scan_tracker_jit(state, frames_curr, frames_next, cfg)
 
 
@@ -600,13 +659,13 @@ def run_sequence(seq, cfg: EngineConfig | None = None, seed: int = 42,
                  device="cuda", sample_idx=None):
     """End-to-end VO over a FrameObservations on ``device`` (the card by
     default; ``device="cpu"`` runs the plain versions of the kernels):
-    ``bootstrap``, then ``scan_tracker_jit``.  Returns (final state, logs,
+    ``bootstrap_jit``, then ``scan_tracker_jit``.  Returns (final state, logs,
     poses (F, 4, 4) camera-in-world incl. the identity first pose, diag)."""
     cfg = cfg or EngineConfig()
     F = seq.uv.shape[0]
     frames = frames_of(seq, 0, F, device)
-    state, diag = bootstrap(make_generator(seed), frame_at(frames, 0),
-                            frame_at(frames, 1), cfg, sample_idx)
+    state, diag = bootstrap_jit(make_generator(seed), frame_at(frames, 0),
+                                frame_at(frames, 1), cfg, sample_idx)
     curr = Frame(*(x[:F - 1] for x in frames))
     nxt = Frame(*(x[1:] for x in frames))
     state, logs = scan_tracker_jit(state, curr, nxt, cfg)
@@ -619,12 +678,12 @@ def run_batch(frames: Frame, cfg: EngineConfig | None = None, seed: int = 42,
     """End-to-end VO over B distinct sequences at once: a lane-batched Frame
     (B, F, N, ...) (see ``lanes_of``) on its device, each lane with its
     own RANSAC draw.  The twin of bench.py's throughput mode (the vmapped
-    bootstrap and scan_tracker): ``bootstrap``, then ``scan_tracker_jit``.
+    bootstrap and scan_tracker): ``bootstrap_jit``, then ``scan_tracker_jit``.
     Returns (final state, logs, poses (B, F, 4, 4) camera-in-world incl. the
     identity first pose, diag), each with a leading lane axis."""
     cfg = cfg or EngineConfig()
-    state, diag = bootstrap(make_generator(seed), lane_frame_at(frames, 0),
-                            lane_frame_at(frames, 1), cfg, sample_idx)
+    state, diag = bootstrap_jit(make_generator(seed), lane_frame_at(frames, 0),
+                                lane_frame_at(frames, 1), cfg, sample_idx)
     curr = Frame(*(x[:, :-1] for x in frames))
     nxt = Frame(*(x[:, 1:] for x in frames))
     state, logs = scan_tracker_jit(state, curr, nxt, cfg)
@@ -649,8 +708,8 @@ def run_threshold_sweep(seq, thresholds, cfg: EngineConfig | None = None, seed: 
     frames = frames_of(seq, 0, F, device)
     thr = torch.as_tensor(thresholds, dtype=torch.float32, device=device)
     B = thr.shape[0]
-    state, _ = bootstrap(make_generator(seed), frame_at(frames, 0), frame_at(frames, 1), cfg,
-                         sample_idx)
+    state, _ = bootstrap_jit(make_generator(seed), frame_at(frames, 0), frame_at(frames, 1),
+                             cfg, sample_idx)
     # one copy of the shared bootstrap per lane (each lane's map then grows
     # on its own); the frames are shared views (lane stride 0)
     states = VOState(*(x.expand((B,) + x.shape).contiguous() for x in state))
@@ -717,7 +776,7 @@ class OnlineVO:
         """Two-view bootstrap.  ``frame_count`` counts trajectory poses: 1
         after start (frame 0's identity), +1 per ``step``; frame 1 is used
         by the bootstrap AND as the first tracked frame."""
-        state, diag = bootstrap(self._generator, f0, f1, self.cfg)
+        state, diag = bootstrap_jit(self._generator, f0, f1, self.cfg)
         self._set(state, f0)
         self.frame_count = 1
         return diag
@@ -731,7 +790,7 @@ class OnlineVO:
             self._prev = frame
             pose = log.pose
         else:
-            if self._prog is None:
+            if self._prog is None or not self._prog.live:  # (dropped by the cache)
                 self._prog = _step_program(self._state, self._prev, frame, self.cfg, None, False)
             b = self._prog.buffers
             if not self._prog.claim(self):
@@ -792,7 +851,8 @@ def run_sequence_chunked(seq, cfg: EngineConfig | None = None, seed: int = 42,
         state, step, extra = load_state(checkpoint_path, device)
         pose_chunks = [_tensor(extra["poses"], torch.float32, device)]
     else:
-        state, _ = bootstrap(make_generator(seed), frame_at(frames, 0), frame_at(frames, 1), cfg)
+        state, _ = bootstrap_jit(make_generator(seed), frame_at(frames, 0), frame_at(frames, 1),
+                                 cfg)
         step = 0
         pose_chunks = [torch.zeros((0, 4, 4), dtype=torch.float32, device=device)]
 

@@ -38,6 +38,10 @@ _SIGNATURES = {
     # lane strides of d1, v1, d2, v2, query tile, queries per thread, map
     # splits, dist_thr, ratio_thr, stream
     "tpuvo_match_top2": [_P] * 8 + [_I] * 4 + [_L] * 4 + [_I] * 3 + [_F] * 2 + [_P],
+    # A, w, V, rotations (or NULL), batch, n, stream
+    "tpuvo_sym_eig": [_P] * 4 + [_I] * 2 + [_P],
+    # A, U, S, Vt, rotations (or NULL), batch, stream
+    "tpuvo_svd3": [_P] * 5 + [_I, _P],
 }
 
 _lib = None

@@ -10,9 +10,16 @@ Conventions: x2^T E x1 = 0 with E = [t]x R; the recovered (R, t) satisfy
 X_cam2 = R · X_cam1 + t with |t| = 1.
 
 Sampling: the JAX package draws each hypothesis's 8 distinct indices by
-Gumbel top-k from a JAX key.  Here the Gumbel noise comes from an explicit
-``torch.Generator``, or the (H, S) indices are passed in as ``sample_idx``
+Gumbel top-k from a JAX key.  Here the uniforms come from an explicit
+``torch.Generator`` (``hypothesis_uniforms``, on the host) and become the
+indices on the tensors' device (``samples_from_uniforms``, which a CUDA
+graph captures), or the (H, S) indices are passed in as ``sample_idx``
 (the tests pass JAX's own draw, since the two generators differ).
+
+The 9x9 eigenvector of the refit and the 3x3 SVDs are kernel C on the card
+(``ops/cuda/smalleig``: no host read, so the bootstrap is a graph), their
+plain versions on the CPU; both fix the eigenvectors' and singular pairs'
+signs the same way.
 
 Every function takes an optional leading lane axis: correspondences
 (B, N, 2), one RANSAC and one pose recovery per lane.  The lanes draw from
@@ -21,13 +28,25 @@ one generator, so lane b's draw differs from a single-lane run's.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import torch
 
 from tpuvo_torch.config import RansacConfig
 from tpuvo_torch.ops import lie, triangulate
-from tpuvo_torch.ops.linalg_small import smallest_eigvec_inverse_iteration
+from tpuvo_torch.ops.cuda import smalleig
+from tpuvo_torch.ops.linalg_small import det3, smallest_eigvec_inverse_iteration
+
+
+@functools.lru_cache(maxsize=None)
+def _constants(device: torch.device):
+    """(the essential manifold's singular values [1, 1, 0], W of the
+    decomposition), made once per device: the host-to-device copy runs in
+    a graph's warm-up, never under its capture."""
+    diag = torch.tensor([1.0, 1.0, 0.0], device=device)
+    W = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]], device=device)
+    return diag, W
 
 
 def normalize_points(uv, K):
@@ -50,11 +69,10 @@ def essential_8pt(x1, x2, weights=None):
     A = _epipolar_rows(x1, x2)
     if weights is not None:
         A = A * weights[..., None]
-    _, vecs = torch.linalg.eigh(A.mT @ A)
+    _, vecs = smalleig.sym_eig(A.mT @ A)
     E = vecs[..., :, 0].reshape(vecs.shape[:-2] + (3, 3))
-    U, _, Vt = torch.linalg.svd(E)
-    diag = torch.tensor([1.0, 1.0, 0.0], dtype=E.dtype, device=E.device)
-    return (U * diag) @ Vt
+    U, _, Vt = smalleig.svd3(E)
+    return (U * _constants(E.device)[0]) @ Vt
 
 
 def sampson_error(E, x1, x2):
@@ -75,30 +93,46 @@ class RansacResult(NamedTuple):
     best_hypothesis: torch.Tensor # (...) int (diagnostic)
 
 
-def draw_samples(generator, valid, num_hypotheses: int, sample_size: int):
-    """(..., H, S) distinct valid indices per hypothesis for a (..., N)
-    validity mask: Gumbel top-k (sampling without replacement, vectorized),
-    all lanes' noise in one draw.  The noise is drawn on the generator's
-    device and moved to valid's, so a CPU generator gives the same samples
-    to a CPU and a CUDA run."""
-    u = torch.rand(valid.shape[:-1] + (num_hypotheses, valid.shape[-1]), generator=generator,
-                   device=generator.device).to(valid.device)
+def hypothesis_uniforms(generator, valid_shape, num_hypotheses: int, out=None):
+    """The uniforms of the RANSAC draw for a (..., N) validity mask: one
+    (..., H, N) ``torch.rand`` on the generator's device (all lanes in one
+    draw; ``out``, e.g. a pinned host buffer, receives them).  A CPU
+    generator gives the same samples to a CPU and a CUDA run."""
+    shape = tuple(valid_shape[:-1]) + (num_hypotheses, valid_shape[-1])
+    return torch.rand(shape, generator=generator, device=generator.device, out=out)
+
+
+def samples_from_uniforms(u, valid, sample_size: int):
+    """(..., H, S) distinct valid indices per hypothesis from the uniforms
+    of ``hypothesis_uniforms`` on valid's device: Gumbel top-k (sampling
+    without replacement, vectorized).  No host read."""
     u = torch.clamp(u, min=torch.finfo(u.dtype).tiny)
     gumbel = -torch.log(-torch.log(u))
     scores = torch.where(valid.unsqueeze(-2), gumbel, -float("inf"))
     return torch.topk(scores, sample_size, dim=-1).indices
 
 
+def draw_samples(generator, valid, num_hypotheses: int, sample_size: int):
+    """(..., H, S) distinct valid indices per hypothesis for a (..., N)
+    validity mask, drawn from ``generator`` (the uniforms moved to valid's
+    device)."""
+    u = hypothesis_uniforms(generator, valid.shape, num_hypotheses)
+    return samples_from_uniforms(u.to(valid.device), valid, sample_size)
+
+
 def ransac_essential(generator, x1, x2, valid, cfg: RansacConfig, focal,
-                     sample_idx=None) -> RansacResult:
+                     sample_idx=None, uniforms=None) -> RansacResult:
     """Batched RANSAC over ``cfg.num_hypotheses`` minimal sets, then the
     refit on the winner's inliers (kept only if it loses no inliers).
-    sample_idx: optional (..., H, S) minimal sets replacing the draw."""
+    sample_idx: optional (..., H, S) minimal sets replacing the draw;
+    uniforms: optional (..., H, N) uniforms of the draw on x1's device
+    (``hypothesis_uniforms``), replacing the generator."""
     N = x1.shape[-2]
     lanes = x1.shape[:-2]
     H = cfg.num_hypotheses
     if sample_idx is None:
-        sample_idx = draw_samples(generator, valid, H, cfg.sample_size)
+        sample_idx = (draw_samples(generator, valid, H, cfg.sample_size) if uniforms is None
+                      else samples_from_uniforms(uniforms, valid, cfg.sample_size))
     sample_idx = sample_idx.to(device=x1.device, dtype=torch.int64)
 
     rows = _epipolar_rows(x1, x2)  # (..., N, 9)
@@ -138,11 +172,10 @@ def _pick(x, i):
 
 def decompose_essential(E):
     """E -> two rotations + translation direction (the classic U W V^T)."""
-    U, _, Vt = torch.linalg.svd(E)
-    U = U * torch.sign(torch.linalg.det(U))[..., None, None]
-    Vt = Vt * torch.sign(torch.linalg.det(Vt))[..., None, None]
-    W = torch.tensor([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]],
-                     dtype=E.dtype, device=E.device)
+    U, _, Vt = smalleig.svd3(E)
+    U = U * torch.sign(det3(U))[..., None, None]
+    Vt = Vt * torch.sign(det3(Vt))[..., None, None]
+    W = _constants(E.device)[1]
     return U @ W @ Vt, U @ W.T @ Vt, U[..., :, 2]
 
 
@@ -171,11 +204,11 @@ def recover_pose(E, x1, x2, mask):
 
 
 def bootstrap_pose(generator, K, uv1, uv2, valid, cfg: RansacConfig,
-                   sample_idx=None):
+                   sample_idx=None, uniforms=None):
     """RANSAC E + pose recovery.  Returns (camera-2-in-world 4x4 pose with
     world = camera-1 frame, RansacResult, PoseResult)."""
     x1 = normalize_points(uv1, K)
     x2 = normalize_points(uv2, K)
-    rres = ransac_essential(generator, x1, x2, valid, cfg, K[0, 0], sample_idx)
+    rres = ransac_essential(generator, x1, x2, valid, cfg, K[0, 0], sample_idx, uniforms)
     pres = recover_pose(rres.E, x1, x2, rres.inliers)
     return lie.inv_se3(lie.rt_to_T(pres.R, pres.t)), rres, pres

@@ -17,20 +17,30 @@ branch as the JAX step's ``lax.cond`` does on the device).  A step's body
 reads its inputs from the buffers and writes what it carries back into
 them inside the graph, so a replay costs the host one ``cudaGraphLaunch``.
 
-Capturing a branch: three eager calls of the body on a side stream first,
-with the carried buffers restored after each and after the capture (the
-calls build the kernels, fill the per-config caches such as ``vo._K``,
-whose host-to-device copy must never run under capture, and let cuBLAS set
-up its workspace); then the capture itself, under ``host_sync_guard``.  An
+Capturing a branch: three eager calls of the body on a side stream (the
+same one for every capture) first, with the carried buffers restored after
+each and after the capture (the calls build the kernels, fill the
+per-config caches such as ``vo._K``, whose host-to-device copy must never
+run under capture, and let cuBLAS set up its workspace); then the capture
+itself, under ``host_sync_guard``.  An
 op that reads the device from the host, or copies between host and card,
 raises ``GraphCaptureError`` naming the op; a capture that CUDA refuses
 raises it too.  Nothing falls back to the eager step on the card.
 
-Counters: ``captures`` and ``replays``, as ``picp_kernel.launches`` counts
-kernel launches.  A replay runs none of the kernels' Python wrappers, so a
-graph credits the launches it captured to their counters on every replay;
-the warm-up calls' launches are kept out of those counters (the build's,
-like a trace's) and counted in ``warmup_launches``.
+The cache is bounded: an entry holds device memory between calls (its
+buffers and its graphs' private pools: ~4 MiB for one lane's scan at 8192
+slots, ~38 MiB for its bootstrap, over a GiB for both at B=256), and a key
+per input shape would grow it with every new sequence length.  When a capture takes the entries past
+``CACHE_BYTES`` the least recently used ones are dropped (a session holding
+one first copies its state out), which frees their buffers and pools; the
+next call of a dropped key captures it again, and gives the same bits.
+
+Counters: ``captures``, ``replays`` and ``evictions``, as
+``picp_kernel.launches`` counts kernel launches.  A replay runs none of the
+kernels' Python wrappers, so a graph credits the launches it captured to
+their counters on every replay; the warm-up calls' launches are kept out of
+those counters (the build's, like a trace's) and counted in
+``warmup_launches``.
 """
 
 from __future__ import annotations
@@ -40,16 +50,19 @@ import time
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from tpuvo_torch.ops.cuda import match_kernel, picp_kernel
+from tpuvo_torch.ops.cuda import match_kernel, picp_kernel, smalleig
 
 WARMUP = 3            # eager calls of a body before its capture
-COUNTED = (picp_kernel, match_kernel)  # modules whose ``launches`` a replay credits
+COUNTED = (picp_kernel, match_kernel, smalleig)  # modules whose ``launches`` a replay credits
+CACHE_BYTES = 4 << 30  # device bytes the cached entries may hold (5% of an 80 GB card)
 
 captures = 0          # graphs captured in this process
 replays = 0           # graph replays in this process
+evictions = 0         # entries dropped from the cache in this process
 warmup_launches = 0   # kernel launches made by warm-up calls (not in COUNTED)
 
-_cache: dict = {}
+_cache: dict = {}     # key -> Program, least recently used first
+_side_streams: dict = {}  # device -> the stream every capture's warm-ups run on
 
 
 class GraphCaptureError(RuntimeError):
@@ -74,16 +87,52 @@ def signature(tree):
 
 
 def cached(key, make) -> "Program":
-    """The Program under ``key``, made by ``make()`` on the first call."""
-    prog = _cache.get(key)
+    """The Program under ``key``, made by ``make()`` on the first call (or
+    the first after it was evicted); it becomes the most recently used."""
+    prog = _cache.pop(key, None)
     if prog is None:
-        prog = _cache[key] = make()
+        prog = make()
+    _cache[key] = prog
     return prog
 
 
 def clear() -> None:
     """Drop every cached Program (and its graphs' memory)."""
+    for prog in _cache.values():
+        prog.drop()
     _cache.clear()
+
+
+def cached_bytes() -> int:
+    """The device bytes the cached Programs hold (``Program.nbytes``)."""
+    return sum(p.nbytes() for p in _cache.values())
+
+
+def _evict(keep) -> None:
+    """Drop least recently used Programs, never ``keep``, until the cache
+    holds at most CACHE_BYTES."""
+    global evictions
+    total = cached_bytes()
+    for key in list(_cache):
+        if total <= CACHE_BYTES:
+            return
+        prog = _cache[key]
+        if prog is keep:
+            continue
+        total -= prog.nbytes()
+        del _cache[key]
+        prog.drop()
+        evictions += 1
+
+
+def _tensor_bytes(tree) -> int:
+    if isinstance(tree, torch.Tensor):
+        return tree.untyped_storage().nbytes()
+    if isinstance(tree, (tuple, list)):
+        return sum(_tensor_bytes(x) for x in tree)
+    if isinstance(tree, dict):
+        return sum(_tensor_bytes(x) for x in tree.values())
+    return 0
 
 
 # --------------------------------------------------------- host sync guard --
@@ -143,18 +192,30 @@ class host_sync_guard(TorchDispatchMode):
 class CUDAGraph:
     """``fn()`` captured on the current device: ``warm()`` is called WARMUP
     times on a side stream first, then ``fn()`` is captured (not run).
-    ``outputs`` are its results, which every ``replay`` rewrites in place."""
+    ``outputs`` are its results, which every ``replay`` rewrites in place;
+    ``pool_bytes`` the memory its private pool reserved."""
 
     def __init__(self, fn, warm):
-        side = torch.cuda.Stream()
+        # one side stream for all warm-ups: cuBLAS keeps a workspace (32 MiB
+        # on this card) for every stream it runs on, for good
+        dev = torch.cuda.current_device()
+        side = _side_streams.get(dev)
+        if side is None:
+            side = _side_streams[dev] = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
             for _ in range(WARMUP):
                 warm()
         torch.cuda.current_stream().wait_stream(side)
         self._graph = torch.cuda.CUDAGraph()
+        # the capture empties the allocator's cache before it begins; done
+        # here first, the reserve the capture adds is its pool's
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        before = torch.cuda.memory_reserved()
         with torch.cuda.graph(self._graph):
             self.outputs = fn()
+        self.pool_bytes = torch.cuda.memory_reserved() - before
 
     def replay(self):
         self._graph.replay()
@@ -179,6 +240,21 @@ class Program:
         self.graphs = {}        # branch -> (CUDAGraph, launches per module)
         self.capture_s = {}     # branch -> host seconds of its warm-up and capture
         self.owner = None
+        self.live = True        # False once the cache dropped it
+
+    def nbytes(self) -> int:
+        """Device bytes the entry holds: its buffers and its graphs' pools."""
+        return _tensor_bytes(self.buffers) + sum(getattr(g, "pool_bytes", 0)
+                                                 for g, _ in self.graphs.values())
+
+    def drop(self) -> None:
+        """Let go of the graphs and buffers (the cache evicted the entry): a
+        session holding the buffers copies its state out first."""
+        if self.owner is not None:
+            self.owner.release(self)
+            self.owner = None
+        self.graphs.clear()
+        self.live = False
 
     def claim(self, owner) -> bool:
         """Make ``owner`` the holder of the carried buffers.  Returns True
@@ -239,6 +315,7 @@ class Program:
         entry = self.graphs.get(branch)
         if entry is None:
             entry = self.graphs[branch] = self._capture(branch, body)
+            _evict(keep=self)
         graph, launches = entry
         graph.replay()
         for m, n in zip(COUNTED, launches):
