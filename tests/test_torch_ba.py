@@ -86,7 +86,7 @@ def test_linearize_matches_jax(name, assembly):
     jp, tp = both(make_problem())
     kw = LIN_CFGS[name]
     lj = linearize_j(jp, KJ, *WH, JBA(assembly=assembly, **kw))
-    lt = tw.linearize_ba(tp, KT, *WH, BAConfig(assembly=assembly, **kw))
+    lt = tw.linearize_ba(tp, KT, *WH, BAConfig(assembly=assembly, **kw), tw.assembly_plans(tp))
     for i, k in enumerate(("Hpp", "bp", "Hll", "bl", "Wfl")):
         assert lt[i].shape == lj[i].shape, k
         close_rel(lt[i], lj[i], LIN_RTOL[name], msg=k)
@@ -151,7 +151,7 @@ def test_schur_pieces_match_jax():
 def test_ba_step_matches_jax(damping):
     jp, tp = both(make_problem(seed=1))
     rj, sj = ba_step_j(jp, KJ, *WH, JBA(), damping)
-    rt, st = tw.ba_step(tp, KT, *WH, BAConfig(), damping)
+    rt, st = tw.ba_step(tp, KT, *WH, BAConfig(), damping, plans=tw.assembly_plans(tp))
     np.testing.assert_allclose(rt.poses.numpy(), np.asarray(rj.poses), atol=1e-5)
     np.testing.assert_allclose(rt.points.numpy(), np.asarray(rj.points), atol=1e-3)
     assert int(st.num_inliers) == int(sj.num_inliers)
@@ -227,7 +227,7 @@ def test_singular_system_gives_nan_and_a_rejected_step():
     p["obs_valid"][5] = False                       # pose 5: free and unobserved
     jp, tp = both(p)
     kw = dict(iterations=4, damping=0.0, damping_init=0.0)
-    rt, st = tw.ba_step(tp, KT, *WH, BAConfig(**kw), 0.0)
+    rt, st = tw.ba_step(tp, KT, *WH, BAConfig(**kw), 0.0, plans=tw.assembly_plans(tp))
     assert torch.isnan(rt.poses[2:]).any()
     rt, st = tw.ba_solve(tp, KT, *WH, BAConfig(**kw))
     rj, sj = ba_solve_j(jp, KJ, *WH, JBA(**kw))

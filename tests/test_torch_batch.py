@@ -231,6 +231,25 @@ def test_lane_equals_single_sequence_step(branch):
         state = s2
 
 
+@pytest.mark.parametrize("shapes", [((3, 3), (B, 3, 4)), ((B, 32, 3), (B, 3, 3)),
+                                    ((B, 32, 3, 4), (B, 32, 4, 1)), ((B, 3, 3), (B, 3, 1))],
+                         ids=["K-pose", "points-pose", "per-point-AtB", "pose-vector"])
+def test_written_out_products_give_a_lane_its_bits_alone(shapes):
+    """linalg_small.matmul_terms, the card's form of the tracker's small
+    products: within float32 rounding of torch's product (rtol 1e-6), and
+    each lane gets the bits of its own arguments multiplied alone."""
+    from tpuvo_torch.ops.linalg_small import matmul_terms
+
+    rng = np.random.default_rng(5)
+    A, C = (torch.as_tensor(rng.normal(0, 10, s).astype(np.float32)) for s in shapes)
+    got = matmul_terms(A, C)
+    torch.testing.assert_close(got, A.double() @ C.double(), rtol=1e-6, atol=1e-4,
+                               check_dtype=False)
+    for b in range(B):
+        alone = matmul_terms(A[b] if A.dim() == C.dim() else A, C[b])
+        assert torch.equal(alone, got[b])
+
+
 @pytest.mark.parametrize("kernel", [False, True])
 def test_run_batch_matches_single_sequence_runs(kernel):
     """run_batch over lanes_of(B sequences) with every lane's RANSAC draw

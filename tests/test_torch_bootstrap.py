@@ -362,7 +362,7 @@ def test_ba_plans_reuse_the_landmark_sort():
     K = torch.as_tensor(CFG.K())
     cfg = tw.BAConfig()
     assert_same(tw.linearize_ba(prob, K, CFG.width, CFG.height, cfg, (by_lm, by_lm_frame)),
-                tw.linearize_ba(prob, K, CFG.width, CFG.height, cfg))
+                tw.linearize_ba(prob, K, CFG.width, CFG.height, cfg, (by_lm, fresh)))
 
 
 def test_pgo_sums_are_index_add_in_edge_order():

@@ -488,6 +488,39 @@ def test_batched_track_step_on_card_matches_cpu(dev):
         state = s2
 
 
+def test_lane_step_equals_the_lane_alone_on_card(dev):
+    """Teacher forcing of three lanes at the sweep's thresholds on the card:
+    each lane's state stepped alone (no lane axis, its own threshold) gives
+    the batched step's pose, new landmarks and whole state bit for bit
+    (kernel A solves each lane as it solves it alone, and the step's small
+    products are written out, ``linalg_small.matmul_small``)."""
+    import dataclasses
+
+    cfg = EngineConfig(mode="fixed", map_capacity=256, max_obs=64,
+                       matcher=MatcherConfig(method="pallas"),
+                       picp=PICPConfig(backend="pallas", convergence_threshold=1e-4))
+    world = synthetic.make_world(13, n_landmarks=300, xy_extent=8.0)
+    seqs = [synthetic.render_sequence(world, synthetic.make_planar_trajectory(10, seed=13), cfg,
+                                      pixel_noise=0.3, seed=s) for s in (13, 14, 15)]
+    fr = vo.lanes_of(seqs, dev)
+    thresholds = (1000.0, 3000.0, 10000.0)
+    thr = torch.tensor(thresholds, device=dev)
+    state, _ = vo.bootstrap(vo.make_generator(42), vo.lane_frame_at(fr, 0),
+                            vo.lane_frame_at(fr, 1), cfg)
+    lane = lambda tup, b: type(tup)(*(x[b] for x in tup))
+    for i in range(fr.uv.shape[1] - 1):
+        curr, nxt = vo.lane_frame_at(fr, i), vo.lane_frame_at(fr, i + 1)
+        s2, lg = vo.track_step(state, curr, nxt, cfg, thr)
+        for b, t in enumerate(thresholds):
+            cb = cfg.replace(picp=dataclasses.replace(cfg.picp, kernel_threshold=t))
+            s1, l1 = vo.track_step(lane(state, b), lane(curr, b), lane(nxt, b), cb)
+            assert torch.equal(l1.pose, lg.pose[b]), (i, b)
+            assert int(l1.n_new_points) == int(lg.n_new_points[b]), (i, b)
+            for k, x in s1._asdict().items():
+                assert torch.equal(x, getattr(s2, k)[b]), (i, b, k)
+        state = s2
+
+
 def test_cli_run_on_card_launches_kernel_b_per_frame(dev, tmp_path, monkeypatch, capsys):
     """``python -m tpuvo_torch --matcher pallas run`` on a written 20-frame
     dataset, on the card by default: kernel B once per tracked frame plus

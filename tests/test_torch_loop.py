@@ -200,7 +200,7 @@ def test_pgo_solve_matches_jax():
     lin_j = jax.jit(jpg.linearize_pgo)
     for thr in (1.0, 1e8):
         Hj, bj, cj, nj = lin_j(gj, thr)
-        Ht, bt, ct, nt = tpg.linearize_pgo(gt_, thr)
+        Ht, bt, ct, nt = tpg.linearize_pgo(gt_, thr, tpg.assembly_plans(gt_))
         np.testing.assert_allclose(Ht.numpy(), np.asarray(Hj), atol=1e-3, rtol=1e-5)
         np.testing.assert_allclose(bt.numpy(), np.asarray(bj), atol=1e-4)
         assert int(nt) == int(nj)

@@ -4,6 +4,7 @@ capture cache on the card, compared across source trees (e.g. a commit and
 its parent).
 
     python tools/compare_trees.py TREE [TREE ...]
+    python tools/compare_trees.py --sharded-ba TREE [TREE ...]
 
 Each TREE is the root of a checkout of this repository; each is measured in
 a process of its own that imports that tree's ``tpuvo_torch`` and
@@ -26,6 +27,11 @@ frames, an 8192-slot map, both kernels):
     with it set to 64 MiB, so that the bound shows within 20 lengths);
   * the bench, ``python -m tpuvo_torch bench`` as a process in the tree, at
     its defaults: its latency, throughput and SLAM rates.
+
+With ``--sharded-ba``, only phase 12's sharded BA at world size 1 (NCCL),
+through the tree's own ``chip_smoke.sharded_ba_world1``: ms per GN
+iteration of ``sharded_ba_solve`` and of the unsharded ``ba_solve`` (the
+marginal between 2 and 22 iterations, median wall of 3 each).
 
 Prints the card's name and power limit, then one JSON line per tree.
 """
@@ -141,21 +147,46 @@ def measure(tree: str) -> dict:
     line = json.loads(r.stdout.strip().splitlines()[-1])
     extra = line.get("extra", {})
     out["bench"] = {k: extra.get(k) for k in ("fps_latency_1seq", "fps_throughput_batch",
-                                              "slam_fps", "ate_slam", "ate_refined")}
+                                              "slam_fps", "ate_rmse", "ate_slam", "ate_refined")}
     return out
+
+
+def measure_sharded_ba(tree: str) -> dict:
+    sys.path.insert(0, tree)
+    import torch.distributed as dist
+
+    import chip_smoke as cs
+    from tpuvo_torch.parallel import mesh as pm
+
+    assert os.path.dirname(os.path.abspath(pm.__file__)).startswith(os.path.abspath(tree))
+    failed = []
+    cs.check = lambda ok, msg: ok or failed.append(msg)
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(cs.free_port()), RANK="0",
+                      WORLD_SIZE="1", LOCAL_RANK="0")
+    pm.maybe_distributed_init()
+    summary = {}
+    try:
+        cs.sharded_ba_world1(summary, pm.local_mesh(1))
+    finally:
+        dist.destroy_process_group()
+    return {"tree": tree, "sharded_ba": summary["sharded_ba"], "failed_checks": failed}
 
 
 def main():
     if sys.argv[1:2] == ["--one"]:
-        print("RESULT " + json.dumps(measure(sys.argv[2])), flush=True)
+        sharded = sys.argv[2] == "--sharded-ba"
+        tree = sys.argv[3 if sharded else 2]
+        print("RESULT " + json.dumps(measure_sharded_ba(tree) if sharded else measure(tree)),
+              flush=True)
         return
+    flags = [a for a in sys.argv[1:] if a == "--sharded-ba"]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True)
     print(smi.stdout.strip(), flush=True)
-    for tree in sys.argv[1:]:
+    for tree in [a for a in sys.argv[1:] if a not in flags]:
         tree = os.path.abspath(tree)
-        r = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", tree], cwd=tree,
-                           capture_output=True, text=True, timeout=1500)
+        r = subprocess.run([sys.executable, os.path.abspath(__file__), "--one", *flags, tree],
+                           cwd=tree, capture_output=True, text=True, timeout=1500)
         lines = [ln for ln in r.stdout.splitlines() if ln.startswith("RESULT ")]
         if r.returncode or not lines:
             print(f"FAIL {tree} (exit {r.returncode}):\n{r.stdout[-2000:]}{r.stderr[-3000:]}")

@@ -102,10 +102,10 @@ def assembly_plans(graph: PoseGraph):
             assembly.plan(torch.cat([ii, jj]), F))
 
 
-def linearize_pgo(graph: PoseGraph, kernel_threshold: float, plans=None):
+def linearize_pgo(graph: PoseGraph, kernel_threshold: float, plans):
     """All-edge linearization -> (H (F, F, 6, 6), b (F, 6), robust chi,
-    inlier count).  ``plans``: ``assembly_plans(graph)``, made here when not
-    given."""
+    inlier count).  ``plans``: ``assembly_plans(graph)``, made once by the
+    solve."""
     F = graph.poses.shape[0]
     ii = graph.edges_ij[:, 0].long()
     jj = graph.edges_ij[:, 1].long()
@@ -124,7 +124,7 @@ def linearize_pgo(graph: PoseGraph, kernel_threshold: float, plans=None):
     bj = torch.einsum("eki,ek,e->ei", Jj, r, w)
 
     # not index_add_, whose atomics sum in no fixed order on the card
-    by_block, by_pose = assembly_plans(graph) if plans is None else plans
+    by_block, by_pose = plans
     H = assembly.segment_sum(torch.cat([Hii, Hjj, Hij, Hij.mT]), by_block).reshape(F, F, 6, 6)
     b = assembly.segment_sum(torch.cat([bi, bj]), by_pose)
 

@@ -140,14 +140,14 @@ def assembly_plans(problem: BAProblem):
     return by_lm, assembly.plan(lm * W + fidx, L * W, order=by_lm.order)
 
 
-def linearize_ba(problem: BAProblem, K, width, height, cfg: BAConfig, plans=None):
+def linearize_ba(problem: BAProblem, K, width, height, cfg: BAConfig, plans):
     """Assemble all Schur ingredients in batched passes.
 
     Returns (Hpp (W,6,6), bp (W,6), Hll (L,3,3), bl (L,3),
     Wfl (L,W,6,3) coupling blocks, stats).  ``cfg.assembly`` "segsum" and
     "onehot" name two TPU assemblies of the same sums; both are the one
     fixed-order segmented sum here (JAX's own tests hold the two equal).
-    ``plans``: ``assembly_plans(problem)``, made here when not given."""
+    ``plans``: ``assembly_plans(problem)``, made once by the solve."""
     W = problem.obs_lm.shape[0]
     L = problem.points.shape[0]
     _, X, valid = _gather_obs(problem)
@@ -163,7 +163,7 @@ def linearize_ba(problem: BAProblem, K, width, height, cfg: BAConfig, plans=None
     # not index_add_, whose atomics sum in no fixed order on the card: two
     # runs of one problem would differ in the last bits, and an LM accept
     # test near a tie can grow that into a different step
-    by_lm, by_lm_frame = assembly_plans(problem) if plans is None else plans
+    by_lm, by_lm_frame = plans
     Hll = assembly.segment_sum(HB.reshape(-1, 3, 3), by_lm)
     bl = assembly.segment_sum(blB.reshape(-1, 3), by_lm)
     Wfl = assembly.segment_sum(Wb.reshape(-1, 6, 3), by_lm_frame).reshape(L, W, 6, 3)
@@ -256,11 +256,11 @@ def _reduce_fused(S, b_red, stats: BAStats, reduce):
                                           num_obs=buf[2, n + 1].to(torch.int32))
 
 
-def ba_step(problem: BAProblem, K, width, height, cfg: BAConfig, damping=None, reduce=None,
-            plans=None):
+def ba_step(problem: BAProblem, K, width, height, cfg: BAConfig, damping=None, reduce=None, *,
+            plans):
     """One Levenberg-damped GN iteration; ``damping`` (a float or a 0-d
     tensor) overrides cfg.damping; ``plans``: ``assembly_plans(problem)``
-    (the solve's topology), made here when not given.
+    (the solve's topology, planned once by the caller).
 
     ``reduce``: a sum over the ranks that share the poses (the sharded
     solver's all_reduce), given a landmark shard as ``problem``: the reduced

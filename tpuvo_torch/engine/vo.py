@@ -42,9 +42,11 @@ each with its own map (the twin of ``jax.vmap`` over the JAX package's
 functions, bench.py:236-239).  One body serves both forms: every op indexes
 from the right (``...``), and the per-lane scatters flatten the lanes with
 a row offset per lane.  Without a lane axis the body runs the single
-sequence's own ops (2-D products, no offsets), so a lane-free call gives
-the bits it gave before lanes existed.  A step of B lanes launches each
-kernel once for all of them.
+sequence's own ops (no offsets).  On the card the step's small products are
+written out (``ops/linalg_small.matmul_small``), so a lane of a batch steps
+as the same sequence alone, bit for bit (with the motion model off: its
+compose products are still the card's own).  A step of B lanes launches
+each kernel once for all of them.
 """
 
 from __future__ import annotations

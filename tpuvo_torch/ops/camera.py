@@ -9,17 +9,21 @@ from __future__ import annotations
 
 import torch
 
+from tpuvo_torch.ops.linalg_small import matmul_small
+
 
 def project_points_with_cam(K, world_in_camera_T, pts, width: int, height: int):
     """Project (N, 3) world points through a 4x4 world-in-camera transform.
 
     Returns (uv (N, 2), valid (N,) bool, p_cam (N, 3), phom (N, 3)) — the
     camera-frame and K-homogeneous points are what the PICP Jacobian needs.
+    The products are ``matmul_small``'s: on the card a lane of a batch
+    projects as the same pose alone.
     """
     R = world_in_camera_T[..., :3, :3]
     t = world_in_camera_T[..., :3, 3]
-    p_cam = pts @ R.transpose(-1, -2) + t[..., None, :]
-    phom = p_cam @ K.T
+    p_cam = matmul_small(pts, R.transpose(-1, -2)) + t[..., None, :]
+    phom = matmul_small(p_cam, K.T)
     z = phom[..., 2]
     iz = 1.0 / torch.where(torch.abs(z) > 1e-12, z, torch.ones_like(z))
     uv = phom[..., :2] * iz[..., None]

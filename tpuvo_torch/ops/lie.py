@@ -13,6 +13,8 @@ from __future__ import annotations
 
 import torch
 
+from tpuvo_torch.ops.linalg_small import matvec_small
+
 
 def rx(a):
     """Rotation about x."""
@@ -177,10 +179,14 @@ def scale_motion(T, alpha):
 
 
 def inv_se3(T):
-    """Inverse of rigid transform(s) without a general solve."""
+    """Inverse of rigid transform(s) without a general solve.
+
+    Rᵀt is ``matvec_small``'s: on the card a lane of a batch gets the bits
+    of the pose inverted alone (the tracker's PICP starts from this
+    inverse)."""
     Rt = T[..., :3, :3].transpose(-1, -2)
     t = T[..., :3, 3]
-    return rt_to_T(Rt, -torch.einsum("...ij,...j->...i", Rt, t))
+    return rt_to_T(Rt, -matvec_small(Rt, t))
 
 
 def transform_points(T, pts):

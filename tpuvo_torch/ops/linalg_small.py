@@ -12,6 +12,44 @@ from __future__ import annotations
 import torch
 
 
+# Products of small matrices for the tracker's step.  On the card they are
+# written out term by term in elementwise ops: its batched and 2-D products
+# (and its mat-vec products batched over points) pick their kernels, and so
+# their rounding, by shape, and a lane of a batch would get other bits than
+# the same arguments alone.  Written out, every element is summed in index
+# order whatever the leading axes, so a lane steps as the sequence alone,
+# bit for bit.  On the CPU they are torch's own products, which the tests
+# against the JAX twin hold.
+
+
+def matmul_terms(A, B):
+    """A @ B for small (..., m, k) and (..., k, n), broadcast over leading
+    axes, written out term by term (the card's form)."""
+    out = A[..., :, 0:1] * B[..., 0:1, :]
+    for k in range(1, A.shape[-1]):
+        out = out + A[..., :, k:k + 1] * B[..., k:k + 1, :]
+    return out
+
+
+def matmul_small(A, B):
+    """A @ B for small (..., m, k) and (..., k, n)."""
+    return matmul_terms(A, B) if A.is_cuda else A @ B
+
+
+def matvec_small(A, x):
+    """A x for (..., m, k) and (..., k)."""
+    if A.is_cuda:
+        return matmul_terms(A, x[..., None])[..., 0]
+    return torch.einsum("...ij,...j->...i", A, x)
+
+
+def tmatvec_small(A, x):
+    """Aᵀ x for per-point (..., N, k, m) and (..., N, k)."""
+    if A.is_cuda:
+        return matmul_terms(A.mT, x[..., None])[..., 0]
+    return torch.einsum("...nki,...nk->...ni", A, x)
+
+
 def det3(A):
     a, b, c = A[..., 0, 0], A[..., 0, 1], A[..., 0, 2]
     d, e, f = A[..., 1, 0], A[..., 1, 1], A[..., 1, 2]
@@ -121,5 +159,5 @@ def solve_dlt3(A):
     A3 = A[..., :3]
     a4 = A[..., 3]
     N_mat = torch.einsum("...nki,...nkj->...nij", A3, A3)
-    rhs = -torch.einsum("...nki,...nk->...ni", A3, a4)
+    rhs = -tmatvec_small(A3, a4)
     return solve3(N_mat, rhs), det3(N_mat)

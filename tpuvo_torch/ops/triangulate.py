@@ -7,7 +7,8 @@ on low-parallax points in the squared DLT system, and two polish steps
 recover them.  No cheirality filtering (the reference keeps every DLT
 output); a finite mask is returned for callers that gate.  Every function
 takes optional leading lane axes: poses (..., 4, 4), correspondences
-(..., N, 2).
+(..., N, 2).  The products are ``linalg_small``'s: on the card a lane of a
+batch triangulates as the same views alone.
 """
 
 from __future__ import annotations
@@ -15,12 +16,12 @@ from __future__ import annotations
 import torch
 
 from tpuvo_torch.ops import lie
-from tpuvo_torch.ops.linalg_small import solve3, solve_dlt3
+from tpuvo_torch.ops.linalg_small import matmul_small, solve3, solve_dlt3, tmatvec_small
 
 
 def projection_matrix(K, camera_in_world_T):
     """P = K · [T^-1]_(3x4)."""
-    return K @ lie.inv_se3(camera_in_world_T)[..., :3, :4]
+    return matmul_small(K, lie.inv_se3(camera_in_world_T)[..., :3, :4])
 
 
 def _dlt_rows(P1, P2, uv1, uv2):
@@ -59,7 +60,7 @@ def refine_points(P1, P2, uv1, uv2, pts, iterations: int = 2, damping: float = 1
     updates (non-finite or residual increase) are rejected per point."""
 
     def proj(P, X):
-        h = X @ P[..., :3].mT + P[..., None, :, 3]
+        h = matmul_small(X, P[..., :3].mT) + P[..., None, :, 3]
         z = h[..., 2]
         safe_z = torch.where(torch.abs(z) > 1e-12, z, torch.full_like(z, 1e-12))
         return h[..., :2] / safe_z[..., None], safe_z, h
@@ -82,7 +83,7 @@ def refine_points(P1, P2, uv1, uv2, pts, iterations: int = 2, damping: float = 1
         r, (z1, h1, z2, h2) = residual(pts)
         J = torch.cat([J_of(P1, z1, h1), J_of(P2, z2, h2)], dim=-2)  # (..., N, 4, 3)
         H = torch.einsum("...nki,...nkj->...nij", J, J) + damping * eye
-        g = torch.einsum("...nki,...nk->...ni", J, r)
+        g = tmatvec_small(J, r)
         X_new = pts + solve3(H, -g)
         r_new, _ = residual(X_new)
         better = (torch.all(torch.isfinite(X_new), dim=-1)
@@ -99,8 +100,8 @@ def triangulate_two_view(K, T1, T2, uv1, uv2, refine_iterations: int = 2,
     inversions are skipped (the tracker already holds both directions).
     Returns (points (..., N, 3) in the world frame, finite_mask (..., N)).
     """
-    P1 = K @ wic1[..., :3, :4] if wic1 is not None else projection_matrix(K, T1)
-    P2 = K @ wic2[..., :3, :4] if wic2 is not None else projection_matrix(K, T2)
+    P1 = matmul_small(K, wic1[..., :3, :4]) if wic1 is not None else projection_matrix(K, T1)
+    P2 = matmul_small(K, wic2[..., :3, :4]) if wic2 is not None else projection_matrix(K, T2)
     pts, w = triangulate_dlt(P1, P2, uv1, uv2, method)
     if refine_iterations:
         pts = refine_points(P1, P2, uv1, uv2, pts, refine_iterations)

@@ -31,7 +31,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from tpuvo_torch.ba.window import BAProblem, BAStats, ba_step
+from tpuvo_torch.ba.window import BAProblem, BAStats, assembly_plans, ba_step
 from tpuvo_torch.config import BAConfig
 from tpuvo_torch.engine.state import check_device, to_host
 from tpuvo_torch.parallel.mesh import all_gather_stack, all_reduce_sum_, axis_info
@@ -166,22 +166,28 @@ def _own(x, rank: int, n_shard: int):
     return x[0]
 
 
-def _local_step(poses, points, point_valid, obs_uv, obs_lm, obs_valid, fixed,
-                K, width, height, cfg: BAConfig, group, active: int = 0):
+def _local_problem(poses, points, own, fixed, active: int) -> BAProblem:
+    """The rank's shard as a BAProblem.  ``active``: observed landmarks
+    occupy the first ``active`` local slots (see shard_ba_problem's
+    renumbering); the step runs on that prefix only."""
+    La = active if active else points.shape[0]
+    return BAProblem(poses=poses, points=points[:La], obs_uv=own["obs_uv"],
+                     obs_lm=own["obs_lm"], obs_valid=own["obs_valid"],
+                     point_valid=own["point_valid"][:La], fixed=fixed)
+
+
+def _local_step(poses, points, own, fixed, K, width, height, cfg: BAConfig, group, plans,
+                active: int = 0):
     """One rank's BA iteration: ``ba/window.ba_step`` on the rank's shard,
     with its one collective (the fused [S | b | stats] all_reduce).
-
-    ``active``: observed landmarks occupy the first ``active`` local slots
-    (see shard_ba_problem's renumbering); the step runs on that prefix only.
+    ``plans``: ``assembly_plans`` of the shard, made once by the solve.
 
     Returns (new_poses, new_points, stats) with the stats already reduced.
     """
-    La = active if active else points.shape[0]
-    local = BAProblem(poses=poses, points=points[:La], obs_uv=obs_uv, obs_lm=obs_lm,
-                      obs_valid=obs_valid, point_valid=point_valid[:La], fixed=fixed)
+    local = _local_problem(poses, points, own, fixed, active)
     new, stats = ba_step(local, K, width, height, cfg,
-                         reduce=lambda buf: all_reduce_sum_(buf, group))
-    return new.poses, torch.cat([new.points, points[La:]], 0), stats
+                         reduce=lambda buf: all_reduce_sum_(buf, group), plans=plans)
+    return new.poses, torch.cat([new.points, points[local.points.shape[0]:]], 0), stats
 
 
 def _solve(mesh, sp: ShardedBAProblem, K, width, height, cfg: BAConfig, axis: str,
@@ -193,10 +199,11 @@ def _solve(mesh, sp: ShardedBAProblem, K, width, height, cfg: BAConfig, axis: st
     dev = sp.poses.device
     zero_i = torch.zeros((), dtype=torch.int32, device=dev)
     stats = BAStats(torch.zeros((), dtype=torch.float32, device=dev), zero_i, zero_i)
+    # the shard's topology is the solve's: sorted once
+    plans = assembly_plans(_local_problem(poses, points, own, sp.fixed, sp.active))
     for _ in range(iterations):
-        poses, points, stats = _local_step(
-            poses, points, own["point_valid"], own["obs_uv"], own["obs_lm"],
-            own["obs_valid"], sp.fixed, K, width, height, cfg, group, sp.active)
+        poses, points, stats = _local_step(poses, points, own, sp.fixed, K, width, height, cfg,
+                                           group, plans, sp.active)
     out = sp._replace(poses=poses, points=points[None],
                       **{k: own[k][None] for k in _SHARDED if k != "points"})
     return out, stats
