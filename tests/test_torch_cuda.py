@@ -488,37 +488,51 @@ def test_batched_track_step_on_card_matches_cpu(dev):
         state = s2
 
 
-def test_lane_step_equals_the_lane_alone_on_card(dev):
-    """Teacher forcing of three lanes at the sweep's thresholds on the card:
-    each lane's state stepped alone (no lane axis, its own threshold) gives
-    the batched step's pose, new landmarks and whole state bit for bit
-    (kernel A solves each lane as it solves it alone, and the step's small
-    products are written out, ``linalg_small.matmul_small``)."""
+def lanes_step_as_alone(dev, cfg, thresholds=None):
+    """Teacher forcing of three lanes on the card: each lane's state stepped
+    alone (no lane axis; with thresholds, at its own) gives the batched
+    step's pose, new landmarks and whole state bit for bit."""
     import dataclasses
 
-    cfg = EngineConfig(mode="fixed", map_capacity=256, max_obs=64,
-                       matcher=MatcherConfig(method="pallas"),
-                       picp=PICPConfig(backend="pallas", convergence_threshold=1e-4))
     world = synthetic.make_world(13, n_landmarks=300, xy_extent=8.0)
     seqs = [synthetic.render_sequence(world, synthetic.make_planar_trajectory(10, seed=13), cfg,
                                       pixel_noise=0.3, seed=s) for s in (13, 14, 15)]
     fr = vo.lanes_of(seqs, dev)
-    thresholds = (1000.0, 3000.0, 10000.0)
-    thr = torch.tensor(thresholds, device=dev)
+    thr = None if thresholds is None else torch.tensor(thresholds, device=dev)
+    cfgs = [cfg if thresholds is None else cfg.replace(
+        picp=dataclasses.replace(cfg.picp, kernel_threshold=t)) for t in thresholds or (0,) * 3]
     state, _ = vo.bootstrap(vo.make_generator(42), vo.lane_frame_at(fr, 0),
                             vo.lane_frame_at(fr, 1), cfg)
     lane = lambda tup, b: type(tup)(*(x[b] for x in tup))
     for i in range(fr.uv.shape[1] - 1):
         curr, nxt = vo.lane_frame_at(fr, i), vo.lane_frame_at(fr, i + 1)
         s2, lg = vo.track_step(state, curr, nxt, cfg, thr)
-        for b, t in enumerate(thresholds):
-            cb = cfg.replace(picp=dataclasses.replace(cfg.picp, kernel_threshold=t))
+        for b, cb in enumerate(cfgs):
             s1, l1 = vo.track_step(lane(state, b), lane(curr, b), lane(nxt, b), cb)
             assert torch.equal(l1.pose, lg.pose[b]), (i, b)
             assert int(l1.n_new_points) == int(lg.n_new_points[b]), (i, b)
             for k, x in s1._asdict().items():
                 assert torch.equal(x, getattr(s2, k)[b]), (i, b, k)
         state = s2
+
+
+LANE_CFG = EngineConfig(mode="fixed", map_capacity=256, max_obs=64,
+                        matcher=MatcherConfig(method="pallas"),
+                        picp=PICPConfig(backend="pallas", convergence_threshold=1e-4))
+
+
+def test_lane_step_equals_the_lane_alone_on_card(dev):
+    """Three lanes at the sweep's thresholds (kernel A solves each lane as
+    it solves it alone, and the step's small products are written out,
+    ``linalg_small.matmul_small``): each steps as alone, bit for bit."""
+    lanes_step_as_alone(dev, LANE_CFG, (1000.0, 3000.0, 10000.0))
+
+
+def test_motion_model_lane_equals_the_lane_alone_on_card(dev):
+    """Three lanes with the motion model on (alpha = 0.5): the prediction
+    and the velocity are written out too, so each lane steps as alone, bit
+    for bit."""
+    lanes_step_as_alone(dev, LANE_CFG.replace(motion_model_init=True, motion_model_alpha=0.5))
 
 
 def test_cli_run_on_card_launches_kernel_b_per_frame(dev, tmp_path, monkeypatch, capsys):
@@ -845,6 +859,29 @@ def test_kernel_c_edges(dev):
     assert all(bool(torch.isnan(x[2]).all()) for x in out)
     alone = smalleig.svd3(M[[0, 3]])
     assert all(torch.equal(x[[0, 3]], y) for x, y in zip(out, alone))
+
+
+def test_kernel_c_off_its_fast_paths(dev):
+    """Gapped 9x9 matrices on which sym_eig leaves its fast paths with a
+    finite answer, so that it solves them again by the IEEE operators
+    (``chip_smoke.off_fast_path_psd``: scaled by 2^60, 2^-62, 2^-70, a
+    subnormal a_00, theta above 2^60): each against the plain version, and
+    the exact scalings of a matrix the fast paths solve give 2^e w and the
+    same V, bit for bit."""
+    import chip_smoke as cs
+
+    for name, A in cs.off_fast_path_psd(dev).items():
+        assert cs.leaves_fast_path(A).all(), name
+        w, V = smalleig.sym_eig(A)
+        wr, Vr = smalleig.sym_eig_reference(A)
+        assert float(((w - wr).abs() / wr.abs().amax(-1, keepdim=True)).max()) <= 1e-5, name
+        assert float((V - Vr).abs().max()) <= 1e-4, name
+    base = cs.gapped_psd(*cs.OFF_FAST_BASE, dev=dev)
+    assert not cs.leaves_fast_path(base).any()
+    w, V = smalleig.sym_eig(base)
+    for e in cs.OFF_FAST_SCALES:
+        ws, Vs = smalleig.sym_eig(base * 2.0 ** e)
+        assert torch.equal(ws, w * 2.0 ** e) and torch.equal(Vs, V), e
 
 
 def test_bootstrap_jit_on_card_equals_bootstrap(dev):

@@ -10,6 +10,7 @@ import os
 import subprocess
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -102,6 +103,25 @@ def test_lie_scale_motion_so3():
     close(tlie.so3_exp(t(w)), jlie.so3_exp(jnp.asarray(w)))
     R = np.asarray(jlie.so3_exp(jnp.asarray(w)))
     close(tlie.so3_log(t(R)), jlie.so3_log(jnp.asarray(R)), atol=1e-5)
+
+
+@pytest.mark.parametrize("alpha", [0.5, 0.0, 1.0])
+def test_motion_model_written_out_products(alpha):
+    """The motion model's products in the card's written-out form
+    (``linalg_small.matmul_terms``, here on CPU tensors): the prediction
+    pose @ step, the velocity inv(pose) @ new pose and ``scale_motion``'s
+    square, against JAX's ``@`` and vmapped ``lie.scale_motion`` on seeded
+    poses."""
+    rng = np.random.default_rng(21)
+    P, N, V = (np.asarray(jlie.v2t_euler(jnp.asarray(
+        rng.normal(0, s, (16, 6)).astype(np.float32)))) for s in (1.0, 1.0, 0.1))
+    close(tla.matmul_terms(t(P), t(V)), jnp.asarray(P) @ jnp.asarray(V), rtol=0, atol=1e-6)
+    close(tla.matmul_terms(tlie.inv_se3(t(P)), t(N)),
+          jlie.inv_se3(jnp.asarray(P)) @ jnp.asarray(N), rtol=0, atol=1e-6)
+    Vt = t(V)
+    R = tlie._so3_exp(alpha * tlie.so3_log(Vt[:, :3, :3]), tla.matmul_terms)
+    close(tlie.rt_to_T(R, alpha * Vt[:, :3, 3]),
+          jax.vmap(lambda T: jlie.scale_motion(T, alpha))(jnp.asarray(V)), rtol=0, atol=1e-6)
 
 
 def test_lie_augment_wrap_umeyama():

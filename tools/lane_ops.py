@@ -10,6 +10,16 @@ For each op and each batch shape (lanes B, points N), the op runs once on
 the whole batch and once on each lane alone; a line counts the lanes whose
 result is not bit-equal (``torch.equal``) to their row of the batch's.
 Inputs are random, drawn from a seeded generator.
+
+Then the motion model's ops on real states: 8 lanes of the loop fixture
+(``chip_smoke.loop_fixture``, ``lane_frames``) tracked with
+``motion_model_init=True`` and ``motion_model_alpha=0.5``; at each of the
+first 40 steps the prediction ``pose @ step`` and the velocity update
+``inv_se3(pose) @ new pose``, in torch's products and written out, and
+``lie.scale_motion`` of the velocity (its square written out), each
+counted over the lane-steps; and the whole step teacher-forced against
+each lane alone (``chip_smoke.lane_parity``): lane-steps whose pose or
+new-landmark count differ.
 """
 
 from __future__ import annotations
@@ -70,6 +80,10 @@ def main(dev: str = "cuda"):
              lambda X, P: ls.matmul_small(X, P[..., :3].mT), (X, P), (1, 1)),
             ("linalg_small.tmatvec_small", ls.tmatvec_small, (J, v4), (1, 1)),
             ("lie.inv_se3", lie.inv_se3, (T,), (1,)),
+            ("torch: so3_exp's W @ W", lambda w: lie.skew(w) @ lie.skew(w), (0.3 * v3[:, 0],),
+             (1,)),
+            ("lie.scale_motion (alpha 0.5; W @ W written out)", lambda T: lie.scale_motion(T, 0.5),
+             (T,), (1,)),
             ("camera.project_points", lambda T, X: camera.project_points(K, T, X, 1241, 376),
              (T, X), (1, 1)),
             ("triangulate.triangulate_two_view",
@@ -80,6 +94,45 @@ def main(dev: str = "cuda"):
         for name, f, args, lanes in ops:
             print(f"B={B} N={N} {name}: lanes differing {lanes_differing(f, args, lanes)} of {B}",
                   flush=True)
+    motion(dev)
+
+
+def motion(dev: str = "cuda", lanes: int = 8, frames: int = 40):
+    """The motion model's ops and step, lane by lane (module docstring)."""
+    import chip_smoke as cs
+    from tpuvo_torch.engine import vo
+
+    seq, cfg = cs.loop_fixture(frames)
+    cfg = cfg.replace(motion_model_init=True, motion_model_alpha=0.5)
+    fr = cs.lane_frames(seq, lanes, seed=7, dev=dev)
+    state, _ = vo.bootstrap(vo.make_generator(42), vo.lane_frame_at(fr, 0),
+                            vo.lane_frame_at(fr, 1), cfg)
+    a = cfg.motion_model_alpha
+    ops = (
+        ("torch: pose @ step (the prediction)", lambda P, V: P @ lie.scale_motion(V, a)),
+        ("linalg_small.matmul_small: pose @ step",
+         lambda P, V: ls.matmul_small(P, lie.scale_motion(V, a))),
+        ("lie.scale_motion (W @ W written out)", lambda P, V: lie.scale_motion(V, a)),
+        ("torch: inv_se3(pose) @ new pose (the velocity)", lambda P, N: lie.inv_se3(P) @ N),
+        ("linalg_small.matmul_small: the velocity",
+         lambda P, N: ls.matmul_small(lie.inv_se3(P), N)),
+    )
+    bad = {name: 0 for name, _ in ops}
+    for i in range(frames - 1):
+        s2, lg = vo.track_step(state, vo.lane_frame_at(fr, i), vo.lane_frame_at(fr, i + 1), cfg)
+        for name, f in ops:
+            second = lg.pose if "velocity" in name else state.vel
+            bad[name] += lanes_differing(f, (state.pose, second), (1, 1))
+        state = s2
+    n = lanes * (frames - 1)
+    for name, _ in ops:
+        print(f"motion model, loop fixture B={lanes}: {name}: lane-steps differing "
+              f"{bad[name]} of {n}", flush=True)
+    r = cs.lane_parity(fr, cfg)
+    print(f"motion model, loop fixture B={lanes}: the whole step teacher-forced: pose differs "
+          f"on {sum(e > 0 for e in r['dpose'])}, new-landmark count on "
+          f"{sum(d > 0 for d in r['dnew'])}, map matches on {r['match_bad']} of "
+          f"{len(r['dpose'])} lane-steps", flush=True)
 
 
 if __name__ == "__main__":

@@ -44,9 +44,9 @@ from the right (``...``), and the per-lane scatters flatten the lanes with
 a row offset per lane.  Without a lane axis the body runs the single
 sequence's own ops (no offsets).  On the card the step's small products are
 written out (``ops/linalg_small.matmul_small``), so a lane of a batch steps
-as the same sequence alone, bit for bit (with the motion model off: its
-compose products are still the card's own).  A step of B lanes launches
-each kernel once for all of them.
+as the same sequence alone, bit for bit, with the motion model off or on
+(its prediction and its velocity are written out too).  A step of B lanes
+launches each kernel once for all of them.
 """
 
 from __future__ import annotations
@@ -64,6 +64,7 @@ from tpuvo_torch.engine.state import FrameLog, VOState, check_device, empty_stat
 from tpuvo_torch.ops import lie, triangulate, twoview
 from tpuvo_torch.ops.camera import project_points
 from tpuvo_torch.ops.cuda.picp_kernel import solve_cuda
+from tpuvo_torch.ops.linalg_small import matmul_small
 from tpuvo_torch.ops.match import match_descriptors, match_descriptors_pair
 from tpuvo_torch.utils import graphs
 
@@ -314,7 +315,10 @@ def track_step(state: VOState, curr: Frame, nxt: Frame, cfg: EngineConfig,
     if cfg.motion_model_init:
         step_v = (lie.scale_motion(state.vel, cfg.motion_model_alpha)
                   if cfg.motion_model_alpha != 1.0 else state.vel)
-        T_prev = state.pose @ step_v
+        # written out on the card (linalg_small.matmul_small), as the
+        # velocity below: a lane of a batch predicts as the sequence
+        # alone, bit for bit
+        T_prev = matmul_small(state.pose, step_v)
     else:
         T_prev = state.pose
     T_init = lie.inv_se3(T_prev)  # world-in-camera initial guess
@@ -391,7 +395,8 @@ def track_step(state: VOState, curr: Frame, nxt: Frame, cfg: EngineConfig,
         keep = (keep & ok1 & ok2 & (e1 < thr * thr) & (e2 < thr * thr)
                 & finite & parallax_ok)
     if cfg.motion_model_init:
-        vel_new = torch.where(healthy, lie.inv_se3(state.pose) @ new_pose, state.vel)
+        vel_new = torch.where(healthy, matmul_small(lie.inv_se3(state.pose), new_pose),
+                              state.vel)
     else:
         vel_new = state.vel
     state2, n_added, cand_slots, cand_ok = _append_to_map(

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from tpuvo_torch.ops.linalg_small import matvec_small
+from tpuvo_torch.ops.linalg_small import matmul_small, matvec_small
 
 
 def rx(a):
@@ -111,10 +111,15 @@ def quat_to_rot(q):
 
 def so3_exp(w):
     """Rodrigues SO(3) exponential."""
+    return _so3_exp(w, torch.matmul)
+
+
+def _so3_exp(w, matmul):
+    """so3_exp with W² = matmul(W, W)."""
     theta2 = torch.sum(w * w, -1)
     theta = torch.sqrt(theta2 + 1e-32)
     W = skew(w)
-    W2 = W @ W
+    W2 = matmul(W, W)
     big = theta2 > 1e-12
     a = torch.where(big, torch.sin(theta) / theta, 1.0 - theta2 / 6.0)
     b = torch.where(big, (1.0 - torch.cos(theta)) / theta2, 0.5 - theta2 / 24.0)
@@ -173,8 +178,13 @@ def se3_log(T):
 
 
 def scale_motion(T, alpha):
-    """Fractional rigid motion: (R, t) -> (exp(alpha·log R), alpha·t)."""
-    R = so3_exp(alpha * so3_log(T[..., :3, :3]))
+    """Fractional rigid motion: (R, t) -> (exp(alpha·log R), alpha·t).
+
+    The exponential's W² is ``matmul_small``'s: on the card torch's batched
+    W @ W rounds some lanes of a 256-lane batch otherwise than each lane
+    alone (``tools/lane_ops.py``), and this is the motion model's step.
+    ``so3_exp`` (the BA's and PGO's retraction) keeps torch's product."""
+    R = _so3_exp(alpha * so3_log(T[..., :3, :3]), matmul_small)
     return rt_to_T(R, alpha * T[..., :3, 3])
 
 
