@@ -989,3 +989,73 @@ def test_capture_cache_evicts_and_recaptures(dev, monkeypatch):
     torch.cuda.empty_cache()
     assert torch.cuda.memory_reserved() <= held + (8 << 20)  # bounded, not one entry a length
     graphs.clear()
+
+
+# ------------------------------------------------------ the program's spans --
+SPAN_F = 6  # frames: the local BA (W = 2, every 2nd frame) at k = 2, 4; track only at 1, 3, 5
+
+
+def span_session(dev):
+    """A SPAN_F-frame OnlineSLAM session on the card, synchronised."""
+    from tpuvo_torch.engine import slam
+
+    cfg = EngineConfig(mode="fixed", map_capacity=1024, local_ba_window=2,
+                       local_ba_iterations=2, matcher=MatcherConfig(method="pallas"),
+                       picp=PICPConfig(backend="pallas", convergence_threshold=1e-4))
+    gt = synthetic.make_loop_trajectory(200, step=1.0, seed=7)[:SPAN_F]
+    world = synthetic.make_world(7, n_landmarks=4000, xy_extent=float(np.abs(gt[:, :2]).max()) + 15,
+                                 z_range=(0.0, 8.0))
+    seq = synthetic.render_sequence(world, gt, cfg, pixel_noise=0.3, seed=7)
+    s = slam.OnlineSLAM(cfg, max_frames=SPAN_F, seed=42)
+    s.start(vo.frame_of(seq, 0, dev), vo.frame_of(seq, 1, dev))
+    for i in range(1, SPAN_F):
+        s.step(vo.frame_of(seq, i, dev))
+    torch.cuda.synchronize()
+    return s
+
+
+def test_capture_spans_on_card(dev):
+    """Captured under the profiler (host and card): one ``tpuvo.capture.*``
+    span a capture, named by graph and branch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpuvo_torch.utils import graphs
+
+    graphs.clear()
+    c0 = graphs.captures
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        span_session(dev)
+    spans = [e.name() for e in prof.profiler.kineto_results.events()
+             if "CPU" in str(e.device_type()) and e.name().startswith("tpuvo.capture.")]
+    assert len(spans) == graphs.captures - c0 == 3
+    assert set(spans) == {"tpuvo.capture.bootstrap", "tpuvo.capture.slam_step.ba",
+                          "tpuvo.capture.slam_step.track"}
+    graphs.clear()
+
+
+def test_replay_spans_on_card(dev):
+    """Warmed up, then profiled as the benchmark profiles a slice
+    (``vobench.trace.profiled``): one ``tpuvo.replay.*`` span a
+    ``cudaGraphLaunch``, around it, named by graph and branch (both SLAM
+    branches seen); and the parsed trace keeps no ``tpuvo.*`` event among
+    the device activity (the profiler's mirror of a span on the device's
+    timeline is a user annotation, no work)."""
+    from collections import Counter
+
+    from vobench.trace import profiled
+
+    span_session(dev)
+    got = {}
+    with profiled(got):
+        span_session(dev)
+    tr = got["trace"]
+    spans = [e for e in tr.host if e.name.startswith("tpuvo.replay.")]
+    calls = [e for e in tr.host if "cudaGraphLaunch" in e.name]
+    assert len(spans) == len(calls) == SPAN_F
+    assert Counter(s.name for s in spans) == {"tpuvo.replay.bootstrap": 1,
+                                              "tpuvo.replay.slam_step.ba": 2,
+                                              "tpuvo.replay.slam_step.track": 3}
+    for c in calls:
+        assert sum(s.start <= c.start and c.end <= s.end for s in spans) == 1
+    assert tr.device
+    assert not [e.name for e in tr.device if e.name.startswith("tpuvo.")]

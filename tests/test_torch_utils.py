@@ -2,7 +2,7 @@
 checkpoints in both directions, ``OnlineVO.resume`` from a JAX checkpoint,
 an interrupted and resumed ``run_sequence_chunked``, state/log validation,
 fault injection, the metrics JSONL, the reference-format artifacts, plots
-and the stage timer.
+and the Chrome trace with the program's spans.
 
 Tolerances: checkpoints, fault arrays, metrics lines and artifact files
 exact; a session resumed by the port from JAX's checkpoint, stepped beside
@@ -21,7 +21,7 @@ import torch
 from tpuvo.config import EngineConfig as JCfg
 from tpuvo.engine import eval as jeval, state as jstate, vo as jvo
 from tpuvo.utils import checkpoint as jckpt, checks as jchecks, faults as jfaults
-from tpuvo.utils import metrics as jmetrics, profiling as jprofiling
+from tpuvo.utils import metrics as jmetrics
 from tpuvo_torch.config import EngineConfig
 from tpuvo_torch.data import synthetic
 from tpuvo_torch.engine import eval as teval, plots, vo
@@ -276,17 +276,13 @@ def test_render_all_without_matplotlib_says_why(run, tmp_path, monkeypatch, caps
 
 
 # -------------------------------------------------------------- profiling --
-def test_stage_timer_report_like_jax(tmp_path):
-    reports = []
-    for timer, x in ((jprofiling.StageTimer(), jnp.ones(4)), (profiling.StageTimer(), torch.ones(4))):
-        with timer.stage("load", block_on=x):
-            pass
-        timer.time_fn("double", lambda a: a * 2, x, warmup=1, reps=2)
-        reports.append(timer.report())
-    assert reports[0].keys() == reports[1].keys() == {"double", "load"}
-    for k in reports[0]:
-        assert reports[0][k].keys() == reports[1][k].keys()
-        assert reports[1][k]["calls"] == 1
+def test_trace_writes_the_program_spans(tmp_path):
+    """``trace`` writes a Chrome trace holding the program's spans: a
+    bootstrap with its host draw."""
+    seq = make_seq()
+    f0, f1 = vo.frame_of(seq, 0, "cpu"), vo.frame_of(seq, 1, "cpu")
     with profiling.trace(str(tmp_path)):
-        torch.ones(8).sum()
-    assert (tmp_path / "trace.json").stat().st_size > 0
+        vo.bootstrap_jit(vo.make_generator(0), f0, f1, EngineConfig(**KW))
+    with open(tmp_path / "trace.json") as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"tpuvo.bootstrap", "tpuvo.bootstrap.draw"} <= names

@@ -21,7 +21,9 @@ updated out of place, so a carry handed to ``slam_step`` is never changed.
 On the card ``run_sequence_slam`` and ``OnlineSLAM`` replay the step as one
 of two CUDA graphs a config and shape, with and without the local BA
 (``slam_step_jit``, the JAX package's); the carry stays in the graphs'
-buffers from frame to frame.  On the CPU they run ``slam_step``.
+buffers from frame to frame.  On the CPU they run ``slam_step``.  A step is
+the span ``tpuvo.slam.step``, and its replay ``tpuvo.replay.slam_step.ba`` or
+``tpuvo.replay.slam_step.track`` (``utils/profiling``).
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from tpuvo_torch.engine import vo
 from tpuvo_torch.engine.state import VOState, state_from_numpy, state_to_numpy
 from tpuvo_torch.ops import lie
 from tpuvo_torch.utils import graphs
+from tpuvo_torch.utils.profiling import span
 
 
 class SLAMCarry(NamedTuple):
@@ -255,6 +258,11 @@ def _program(name: str, carry: SLAMCarry, frames: dict, cfg: EngineConfig):
     return graphs.cached((name, cfg, graphs.signature((carry[:5], *frames.values()))), make)
 
 
+def _branch(due: bool) -> str:
+    """The step's graph: with the local BA ("ba") or without it ("track")."""
+    return "ba" if due else "track"
+
+
 def _body(cfg: EngineConfig, due: bool, pair: bool):
     def body(b):
         k = b["k"]
@@ -281,17 +289,18 @@ def slam_step_jit(carry: SLAMCarry, curr: vo.Frame, nxt: vo.Frame, cfg: EngineCo
     graph's buffers, the graph of the step's branch (with or without the
     local BA, decided on the host) is replayed, and the new carry and log
     are copied out.  On the CPU, ``slam_step`` itself."""
-    if not graphs.on_card(carry.poses_all):
-        return slam_step(carry, curr, nxt, cfg)
-    prog = _program("slam_step", carry, dict(prev=curr, frame=nxt), cfg)
-    prog.claim(None)
-    b = prog.buffers
-    _load_carry(b, carry)
-    vo._load(b["prev"], curr)
-    vo._load(b["frame"], nxt)
-    due = local_ba_due(carry.k, cfg)
-    log = prog.replay(due, _body(cfg, due, pair=True))
-    return _carry_out(b, carry.n_ba + int(due), carry.k + 1), vo._clone(log)
+    with span("slam.step"):
+        if not graphs.on_card(carry.poses_all):
+            return slam_step(carry, curr, nxt, cfg)
+        prog = _program("slam_step", carry, dict(prev=curr, frame=nxt), cfg)
+        prog.claim(None)
+        b = prog.buffers
+        _load_carry(b, carry)
+        vo._load(b["prev"], curr)
+        vo._load(b["frame"], nxt)
+        due = local_ba_due(carry.k, cfg)
+        log = prog.replay(_branch(due), _body(cfg, due, pair=True))
+        return _carry_out(b, carry.n_ba + int(due), carry.k + 1), vo._clone(log)
 
 
 def carry_to(carry: SLAMCarry, device) -> SLAMCarry:
@@ -325,7 +334,7 @@ def run_sequence_slam(seq, cfg: EngineConfig | None = None, seed: int = 42,
         n_ba = 0
         for k in range(1, F):
             due = local_ba_due(k, cfg)
-            prog.replay(due, _body(cfg, due, pair=False))
+            prog.replay(_branch(due), _body(cfg, due, pair=False))
             n_ba += due
         carry, logs = _carry_out(b, n_ba, F), vo._clone(b["logs"])
     else:
@@ -392,23 +401,24 @@ class OnlineSLAM:
         if self.frame_count >= self.max_frames:
             raise RuntimeError("max_frames exceeded — raise the buffer size")
         c = self._carry
-        if not graphs.on_card(frame.uv):
-            self._carry, _ = slam_step(c, self._prev, frame, self.cfg)
-            self._prev = frame
-            pose = self._carry.poses_all[self.frame_count]
-        else:
-            if self._prog is None or not self._prog.live:  # (dropped by the cache)
-                self._prog = _program("slam_step", c, dict(prev=self._prev, frame=frame),
-                                      self.cfg)
-            b = self._prog.buffers
-            if not self._prog.claim(self):
-                _load_carry(b, c)
-                vo._load(b["prev"], self._prev)
-            vo._load(b["frame"], frame)
-            due = local_ba_due(c.k, self.cfg)
-            self._prog.replay(due, _body(self.cfg, due, pair=True))
-            self._carry = c._replace(n_ba=c.n_ba + int(due), k=c.k + 1)
-            pose = b["carry"].poses_all[self.frame_count].clone()
+        with span("slam.step"):
+            if not graphs.on_card(frame.uv):
+                self._carry, _ = slam_step(c, self._prev, frame, self.cfg)
+                self._prev = frame
+                pose = self._carry.poses_all[self.frame_count]
+            else:
+                if self._prog is None or not self._prog.live:  # (dropped by the cache)
+                    self._prog = _program("slam_step", c, dict(prev=self._prev, frame=frame),
+                                          self.cfg)
+                b = self._prog.buffers
+                if not self._prog.claim(self):
+                    _load_carry(b, c)
+                    vo._load(b["prev"], self._prev)
+                vo._load(b["frame"], frame)
+                due = local_ba_due(c.k, self.cfg)
+                self._prog.replay(_branch(due), _body(self.cfg, due, pair=True))
+                self._carry = c._replace(n_ba=c.n_ba + int(due), k=c.k + 1)
+                pose = b["carry"].poses_all[self.frame_count].clone()
         self.frame_count += 1
         return pose
 

@@ -36,6 +36,11 @@ the eager functions.  ``track_step``, ``scan_tracker`` and ``bootstrap`` stay
 the eager functions the graphs are compared with, as the un-jitted JAX
 ones.
 
+Spans (``utils/profiling``, live only while a profiler records): a bootstrap
+is ``tpuvo.bootstrap``, its host draw of the RANSAC uniforms
+``tpuvo.bootstrap.draw``; a scan ``tpuvo.track_scan``; a session's or
+``track_step_jit``'s step ``tpuvo.vo.step``.
+
 Lanes: ``bootstrap``, ``track_step``, ``scan_tracker`` and ``full_run`` take
 an optional leading lane axis B — B distinct sequences tracked together,
 each with its own map (the twin of ``jax.vmap`` over the JAX package's
@@ -67,6 +72,7 @@ from tpuvo_torch.ops.cuda.picp_kernel import solve_cuda
 from tpuvo_torch.ops.linalg_small import matmul_small
 from tpuvo_torch.ops.match import match_descriptors, match_descriptors_pair
 from tpuvo_torch.utils import graphs
+from tpuvo_torch.utils.profiling import span
 
 
 class Frame(NamedTuple):
@@ -235,12 +241,15 @@ def bootstrap(generator, f0: Frame, f1: Frame, cfg: EngineConfig,
     hypotheses.  sample_idx: optional ((B,) H, 8) indices that replace the
     draw.
     """
-    uniforms = None
-    if sample_idx is None:
-        uniforms = twoview.hypothesis_uniforms(generator, f0.valid.shape,
-                                               cfg.ransac.num_hypotheses).to(f0.uv.device)
-    state, diag = _bootstrap(f0, f1, cfg, sample_idx, uniforms)
-    return state, dict(zip(_DIAG, diag))
+    with span("bootstrap"):
+        uniforms = None
+        if sample_idx is None:
+            with span("bootstrap.draw"):
+                uniforms = twoview.hypothesis_uniforms(generator, f0.valid.shape,
+                                                       cfg.ransac.num_hypotheses)
+            uniforms = uniforms.to(f0.uv.device)
+        state, diag = _bootstrap(f0, f1, cfg, sample_idx, uniforms)
+        return state, dict(zip(_DIAG, diag))
 
 
 def _bootstrap(f0: Frame, f1: Frame, cfg: EngineConfig, sample_idx, uniforms):
@@ -446,12 +455,13 @@ def scan_tracker(state: VOState, frames_curr: Frame, frames_next: Frame,
     after the lane axis, if any)."""
     axis = state.pose.dim() - 2  # the frame axis: after the lane axis
     logs = []
-    for i in range(frames_curr.uv.shape[axis]):
-        state, log = track_step(state, Frame(*(x.select(axis, i) for x in frames_curr)),
-                                Frame(*(x.select(axis, i) for x in frames_next)), cfg,
-                                kernel_threshold)
-        logs.append(log)
-    return state, _stack_logs(logs, cfg.log_stats, dim=axis)
+    with span("track_scan"):
+        for i in range(frames_curr.uv.shape[axis]):
+            state, log = track_step(state, Frame(*(x.select(axis, i) for x in frames_curr)),
+                                    Frame(*(x.select(axis, i) for x in frames_next)), cfg,
+                                    kernel_threshold)
+            logs.append(log)
+        return state, _stack_logs(logs, cfg.log_stats, dim=axis)
 
 
 # ------------------------------------------------------ the captured steps --
@@ -528,19 +538,20 @@ def scan_tracker_jit(state: VOState, frames_curr: Frame, frames_next: Frame,
                  steps=frames_curr.uv.shape[axis], logs=None)
         return graphs.Program("scan_tracker", b, (*b["state"], b["i"]))
 
-    prog = graphs.cached(("scan_tracker", cfg, graphs.signature(
-        (state, frames_curr, frames_next, thr))), make)
-    b = prog.buffers
-    _load(b["state"], state)
-    _load(b["curr"], frames_curr)
-    _load(b["nxt"], frames_next)
-    _load_threshold(b, thr)
-    b["i"].zero_()
-    body = _scan_body(cfg, axis)
-    for _ in range(b["steps"]):
-        prog.replay(None, body)
-    logs = _clone(b["logs"]) if cfg.log_stats else _poses_only(b["logs"].pose.clone(), axis)
-    return _clone(b["state"]), logs
+    with span("track_scan"):
+        prog = graphs.cached(("scan_tracker", cfg, graphs.signature(
+            (state, frames_curr, frames_next, thr))), make)
+        b = prog.buffers
+        _load(b["state"], state)
+        _load(b["curr"], frames_curr)
+        _load(b["nxt"], frames_next)
+        _load_threshold(b, thr)
+        b["i"].zero_()
+        body = _scan_body(cfg, axis)
+        for _ in range(b["steps"]):
+            prog.replay(None, body)
+        logs = _clone(b["logs"]) if cfg.log_stats else _poses_only(b["logs"].pose.clone(), axis)
+        return _clone(b["state"]), logs
 
 
 def _step_body(cfg: EngineConfig, return_matches: bool):
@@ -571,18 +582,19 @@ def track_step_jit(state: VOState, curr: Frame, nxt: Frame, cfg: EngineConfig,
     graph's buffers, the step replayed, and the new state and outputs copied
     out.  One capture per (cfg, shapes, ``return_matches``, threshold form);
     on the CPU, ``track_step`` itself."""
-    if not graphs.on_card(state.pose):
-        return track_step(state, curr, nxt, cfg, kernel_threshold, return_matches)
-    prog = _step_program(state, curr, nxt, cfg, kernel_threshold, return_matches)
-    prog.claim(None)
-    b = prog.buffers
-    _load(b["state"], state)
-    _load(b["prev"], curr)
-    _load(b["frame"], nxt)
-    _load_threshold(b, kernel_threshold)
-    out = prog.replay(None, _step_body(cfg, return_matches))
-    res = (_clone(b["state"]), _clone(out[0]))
-    return res + (tuple(x.clone() for x in out[1]),) if return_matches else res
+    with span("vo.step"):
+        if not graphs.on_card(state.pose):
+            return track_step(state, curr, nxt, cfg, kernel_threshold, return_matches)
+        prog = _step_program(state, curr, nxt, cfg, kernel_threshold, return_matches)
+        prog.claim(None)
+        b = prog.buffers
+        _load(b["state"], state)
+        _load(b["prev"], curr)
+        _load(b["frame"], nxt)
+        _load_threshold(b, kernel_threshold)
+        out = prog.replay(None, _step_body(cfg, return_matches))
+        res = (_clone(b["state"]), _clone(out[0]))
+        return res + (tuple(x.clone() for x in out[1]),) if return_matches else res
 
 
 def bootstrap_jit(generator, f0: Frame, f1: Frame, cfg: EngineConfig, sample_idx=None):
@@ -608,20 +620,22 @@ def bootstrap_jit(generator, f0: Frame, f1: Frame, cfg: EngineConfig, sample_idx
             b["idx"] = torch.empty(sample_idx.shape, dtype=torch.int64, device=dev)
         return graphs.Program("bootstrap", b, ())
 
-    prog = graphs.cached(("bootstrap", cfg, graphs.signature((f0, f1, sample_idx))), make)
-    b = prog.buffers
-    _load(b["f0"], f0)
-    _load(b["f1"], f1)
-    if sample_idx is None:
-        # a fresh pinned block each call: the host allocator reuses it only
-        # once the copy has run
-        host = torch.empty(b["u"].shape, pin_memory=dev.type == "cuda")
-        b["u"].copy_(twoview.hypothesis_uniforms(generator, f0.valid.shape, H, out=host),
-                     non_blocking=True)
-    else:
-        b["idx"].copy_(sample_idx, non_blocking=True)
-    state, diag = prog.replay(None, _bootstrap_body(cfg))
-    return _clone(state), {k: v.clone() for k, v in zip(_DIAG, diag)}
+    with span("bootstrap"):
+        prog = graphs.cached(("bootstrap", cfg, graphs.signature((f0, f1, sample_idx))), make)
+        b = prog.buffers
+        _load(b["f0"], f0)
+        _load(b["f1"], f1)
+        if sample_idx is None:
+            # a fresh pinned block each call: the host allocator reuses it
+            # only once the copy has run
+            host = torch.empty(b["u"].shape, pin_memory=dev.type == "cuda")
+            with span("bootstrap.draw"):
+                twoview.hypothesis_uniforms(generator, f0.valid.shape, H, out=host)
+            b["u"].copy_(host, non_blocking=True)
+        else:
+            b["idx"].copy_(sample_idx, non_blocking=True)
+        state, diag = prog.replay(None, _bootstrap_body(cfg))
+        return _clone(state), {k: v.clone() for k, v in zip(_DIAG, diag)}
 
 
 def _bootstrap_body(cfg: EngineConfig):
@@ -792,20 +806,22 @@ class OnlineVO:
         """Track one new frame; returns the (4, 4) camera-in-world pose."""
         if self._state is None and not self._holds():
             raise RuntimeError("call start(f0, f1) before step()")
-        if not graphs.on_card(frame.uv):
-            self._state, log = track_step(self._state, self._prev, frame, self.cfg)
-            self._prev = frame
-            pose = log.pose
-        else:
-            if self._prog is None or not self._prog.live:  # (dropped by the cache)
-                self._prog = _step_program(self._state, self._prev, frame, self.cfg, None, False)
-            b = self._prog.buffers
-            if not self._prog.claim(self):
-                _load(b["state"], self._state)
-                _load(b["prev"], self._prev)
-            _load(b["frame"], frame)
-            log, = self._prog.replay(None, _step_body(self.cfg, False))
-            pose = log.pose.clone()
+        with span("vo.step"):
+            if not graphs.on_card(frame.uv):
+                self._state, log = track_step(self._state, self._prev, frame, self.cfg)
+                self._prev = frame
+                pose = log.pose
+            else:
+                if self._prog is None or not self._prog.live:  # (dropped by the cache)
+                    self._prog = _step_program(self._state, self._prev, frame, self.cfg, None,
+                                               False)
+                b = self._prog.buffers
+                if not self._prog.claim(self):
+                    _load(b["state"], self._state)
+                    _load(b["prev"], self._prev)
+                _load(b["frame"], frame)
+                log, = self._prog.replay(None, _step_body(self.cfg, False))
+                pose = log.pose.clone()
         self.frame_count += 1
         return pose
 

@@ -41,16 +41,21 @@ kernels' Python wrappers, so a graph credits the launches it captured to
 their counters on every replay; the warm-up calls' launches are kept out of
 those counters (the build's, like a trace's) and counted in
 ``warmup_launches``.
+
+Spans (``utils/profiling.span``, live only while a profiler records): each
+replay is ``tpuvo.replay.<name>[.<branch>]`` around its one
+``cudaGraphLaunch``, each capture ``tpuvo.capture.<name>[.<branch>]``
+around its warm-ups and the capture (in a trace, the idle gap of a capture
+made mid-run).
 """
 
 from __future__ import annotations
-
-import time
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from tpuvo_torch.ops.cuda import match_kernel, picp_kernel, smalleig
+from tpuvo_torch.utils.profiling import span
 
 WARMUP = 3            # eager calls of a body before its capture
 COUNTED = (picp_kernel, match_kernel, smalleig)  # modules whose ``launches`` a replay credits
@@ -237,15 +242,14 @@ class Program:
         self.name = name
         self.buffers = buffers
         self.carried = tuple(carried)
-        self.graphs = {}        # branch -> (CUDAGraph, launches per module)
-        self.capture_s = {}     # branch -> host seconds of its warm-up and capture
+        self.graphs = {}        # branch -> (CUDAGraph, launches per module, replay span)
         self.owner = None
         self.live = True        # False once the cache dropped it
 
     def nbytes(self) -> int:
         """Device bytes the entry holds: its buffers and its graphs' pools."""
         return _tensor_bytes(self.buffers) + sum(getattr(g, "pool_bytes", 0)
-                                                 for g, _ in self.graphs.values())
+                                                 for g, *_ in self.graphs.values())
 
     def drop(self) -> None:
         """Let go of the graphs and buffers (the cache evicted the entry): a
@@ -270,7 +274,6 @@ class Program:
 
     def _capture(self, branch, body):
         global captures, warmup_launches
-        t0 = time.perf_counter()
         saved = [t.clone() for t in self.carried]
 
         def restore():
@@ -305,8 +308,11 @@ class Program:
                 m.launches = n
         restore()
         captures += 1
-        self.capture_s[branch] = time.perf_counter() - t0
-        return graph, launches
+        return graph, launches, "replay." + self._label(branch)
+
+    def _label(self, branch) -> str:
+        """``<name>[.<branch>]``, the spans' name of a branch's graph."""
+        return self.name if branch is None else f"{self.name}.{branch}"
 
     def replay(self, branch, body):
         """Replay ``branch`` (capturing ``body`` first if it is new); returns
@@ -314,10 +320,12 @@ class Program:
         global replays
         entry = self.graphs.get(branch)
         if entry is None:
-            entry = self.graphs[branch] = self._capture(branch, body)
+            with span("capture." + self._label(branch)):
+                entry = self.graphs[branch] = self._capture(branch, body)
             _evict(keep=self)
-        graph, launches = entry
-        graph.replay()
+        graph, launches, name = entry
+        with span(name):
+            graph.replay()
         for m, n in zip(COUNTED, launches):
             m.launches += n
         replays += 1

@@ -1,10 +1,15 @@
-"""Timing + profiling harness (twin of ``tpuvo/utils/profiling.py``).
+"""Profiling: the program's spans and a Chrome trace of a run.
 
-``StageTimer`` gives per-stage wall timings that wait for the card: work on
-a CUDA device is asynchronous, so a stage ends with
-``torch.cuda.synchronize`` on the devices of what it names (naive timing
-measures the enqueue, not the work).  ``trace`` wraps ``torch.profiler`` and
-writes a Chrome trace.
+``span(name)`` marks a stage of the program on the host as the
+``torch.profiler`` event ``tpuvo.<name>``, on the profiler's clock, so a
+device trace puts each kernel and each idle gap under the stage the host
+was in.  With no profiler recording it is one flag check and returns a
+shared no-op context.  The spans sit at the program's host boundaries only
+(a bootstrap and its RANSAC draw, a scan, a session's step, each graph
+replay and capture), never inside a captured graph body, whose Python runs
+at warm-up and capture only.
+
+``trace`` wraps ``torch.profiler`` and writes a Chrome trace.
 """
 
 from __future__ import annotations
@@ -12,60 +17,36 @@ from __future__ import annotations
 import contextlib
 import os
 import tempfile
-import time
-from collections import defaultdict
 
 import torch
 
-from tpuvo_torch.utils.checks import tensors_in
+PREFIX = "tpuvo."
+_recording = torch._C._autograd._profiler_enabled
 
 
-def _block(x):
-    """Wait for the card(s) of x: a device, or tensors (nested in tuples,
-    lists and dicts); nothing to wait for on the CPU."""
-    devices = ({torch.device(x)} if isinstance(x, (str, torch.device))
-               else {t.device for t in tensors_in(x)})
-    for d in devices:
-        if d.type == "cuda":
-            torch.cuda.synchronize(d)
-    return x
+class _Off:
+    """A span while no profiler records: one shared, reentrant object whose
+    enter and exit do nothing (fixed arities: cheaper than
+    ``contextlib.nullcontext``'s)."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, exc_type, exc, tb):
+        return None
 
 
-class StageTimer:
-    def __init__(self):
-        self.totals = defaultdict(float)
-        self.counts = defaultdict(int)
+_OFF = _Off()
 
-    @contextlib.contextmanager
-    def stage(self, name: str, block_on=None):
-        """Time the block; ``block_on``: the device, or the tensors, whose
-        work the stage waits for before its clock stops."""
-        t0 = time.perf_counter()
-        yield
-        _block(block_on)
-        dt = time.perf_counter() - t0
-        self.totals[name] += dt
-        self.counts[name] += 1
 
-    def time_fn(self, name: str, fn, *args, warmup: int = 1, reps: int = 5):
-        """Warm-up-excluded average wall time of fn(*args), each call waited
-        for on the devices of its output."""
-        for _ in range(warmup):
-            _block(fn(*args))
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            _block(fn(*args))
-        dt = (time.perf_counter() - t0) / reps
-        self.totals[name] += dt
-        self.counts[name] += 1
-        return dt
-
-    def report(self) -> dict:
-        return {
-            k: {"total_s": self.totals[k], "calls": self.counts[k],
-                "mean_s": self.totals[k] / max(self.counts[k], 1)}
-            for k in sorted(self.totals)
-        }
+def span(name: str):
+    """The span ``tpuvo.<name>`` while a profiler records; else the shared
+    no-op context (nothing allocated, nothing of the profiler called)."""
+    if not _recording():
+        return _OFF
+    return torch.profiler.record_function(PREFIX + name)
 
 
 @contextlib.contextmanager
