@@ -358,7 +358,7 @@ def test_ba_plans_reuse_the_landmark_sort():
     lm = torch.clamp(prob.obs_lm.long(), 0, L - 1).reshape(-1)
     fresh = assembly.plan(lm * W + torch.arange(W)[:, None].expand(W, N).reshape(-1), L * W)
     assert torch.equal(by_lm_frame.order, fresh.order)
-    assert torch.equal(by_lm_frame.lengths, fresh.lengths)
+    assert torch.equal(by_lm_frame.bounds, fresh.bounds)
     K = torch.as_tensor(CFG.K())
     cfg = tw.BAConfig()
     assert_same(tw.linearize_ba(prob, K, CFG.width, CFG.height, cfg, (by_lm, by_lm_frame)),

@@ -5,13 +5,15 @@ pose graph's assembly (the JAX twins' ``segment_sum`` / ``.at[].add``).
 run to run: two runs of one solve differ in the last bits, and an LM accept
 test near a tie grows that into another step.  Here the targets are sorted
 once per topology (``plan``: a stable argsort, so each target's entries
-keep their order) and every sum of an LM solve walks them in that order
-(``torch.segment_reduce``: one thread per target and column, a sequential
-loop over the target's entries).  Both are capture-safe (no host read: the
-segment lengths come from ``searchsorted`` on the device), and the result is
-the same on every run, in a graph or not.  On the CPU the order is
-``index_add_``'s own (entry order within a target, from zero), so the sums
-are bit-equal to it there.
+keep their order) and every sum of an LM solve walks them in that order,
+from +0.0, one rounded addition at a time: on the card kernel D
+(``ops/cuda/segsum``, one launch, which leaves out the all-zero entries
+that cannot change such a sum), on the CPU ``torch.segment_reduce`` (one
+sequential loop per target and column) — the same bits.  Both are
+capture-safe (no host read: the segment bounds come from ``searchsorted``
+on the device), and the result is the same on every run, in a graph or
+not.  On the CPU the order is ``index_add_``'s own (entry order within a
+target, from zero), so the sums are bit-equal to it there.
 """
 
 from __future__ import annotations
@@ -20,13 +22,15 @@ from typing import NamedTuple
 
 import torch
 
+from tpuvo_torch.ops.cuda import segsum
+
 
 class SumPlan(NamedTuple):
-    """A topology's summation order: the entries sorted by target (stable)
-    and each target's entry count."""
+    """A topology's summation order: the entries sorted by target (stable);
+    target t's entries are ``order[bounds[t]:bounds[t + 1]]``."""
 
-    order: torch.Tensor    # (n,) int64
-    lengths: torch.Tensor  # (n_targets,) int64
+    order: torch.Tensor   # (n,) int64
+    bounds: torch.Tensor  # (n_targets + 1,) int64
 
 
 def plan(targets, n_targets: int, order=None) -> SumPlan:
@@ -38,11 +42,10 @@ def plan(targets, n_targets: int, order=None) -> SumPlan:
         order = torch.argsort(targets, stable=True)
     bounds = torch.searchsorted(targets[order], torch.arange(
         n_targets + 1, dtype=torch.int64, device=targets.device))
-    return SumPlan(order, bounds[1:] - bounds[:-1])
+    return SumPlan(order, bounds)
 
 
 def segment_sum(values, p: SumPlan):
     """(n_targets, ...) sums of the (n, ...) ``values`` into their targets,
     each in the plan's order (an empty target sums to 0)."""
-    return torch.segment_reduce(values[p.order], "sum", lengths=p.lengths, axis=0,
-                                unsafe=True)
+    return segsum.segment_sum(values, p.order, p.bounds)

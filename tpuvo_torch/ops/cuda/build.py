@@ -42,6 +42,8 @@ _SIGNATURES = {
     "tpuvo_sym_eig": [_P] * 4 + [_I] * 2 + [_P],
     # A, U, S, Vt, rotations (or NULL), batch, stream
     "tpuvo_svd3": [_P] * 5 + [_I, _P],
+    # values, order, bounds, out, n (entries), n_targets, cols, stream
+    "tpuvo_segsum": [_P] * 4 + [_L, _L, _I, _P],
 }
 
 _lib = None

@@ -54,11 +54,12 @@ from __future__ import annotations
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from tpuvo_torch.ops.cuda import match_kernel, picp_kernel, smalleig
+from tpuvo_torch.ops.cuda import match_kernel, picp_kernel, segsum, smalleig
 from tpuvo_torch.utils.profiling import span
 
 WARMUP = 3            # eager calls of a body before its capture
-COUNTED = (picp_kernel, match_kernel, smalleig)  # modules whose ``launches`` a replay credits
+# modules whose ``launches`` a replay credits
+COUNTED = (picp_kernel, match_kernel, smalleig, segsum)
 CACHE_BYTES = 4 << 30  # device bytes the cached entries may hold (5% of an 80 GB card)
 
 captures = 0          # graphs captured in this process
