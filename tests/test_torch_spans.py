@@ -114,3 +114,40 @@ def test_graph_spans_name_each_replay_and_capture(fake):
     assert all(sum(inside(r, s) for r in replays) == 1 for s in steps)
     for outer in replays + captures:
         assert not [s for s in got if s is not outer and inside(s, outer)]
+
+
+def test_refine_marks_its_stages_in_order(monkeypatch):
+    """``refine_trajectory_loop`` under a CPU profiler: ``tpuvo.refine``
+    around the topology, ``close_loops`` (its co-visibility, relocalisation
+    and both PGO passes inside, in that order) and one span a sweep, the
+    first coarse; with no profiler it enters nothing of the profiler."""
+    from tpuvo_torch.ba import loop
+    from tpuvo_torch.config import BAConfig
+    from tpuvo_torch.engine import ba_refine
+
+    n = 8
+    seq = make_seq(frames=n)
+    state, _, poses, _ = tvo.run_sequence(seq, CFG, device="cpu")
+    ba = BAConfig(window=n, iterations=1, huber_threshold=500.0)
+    pgo_solve = loop.pgo_solve  # one LM iteration a pass: the spans, not the solve, are tested
+    monkeypatch.setattr(loop, "pgo_solve", lambda g, iterations, **k: pgo_solve(g, 1, **k))
+    run = lambda: ba_refine.refine_trajectory_loop(state, seq, poses, CFG, ba, n_sweeps=2)
+    got = spans(run)
+    names = [s[0] for s in got]
+    loop = ["tpuvo.loop.covis", "tpuvo.loop.reloc", "tpuvo.loop.pgo.l2", "tpuvo.loop.pgo.robust"]
+    assert names[:7] == ["tpuvo.refine", "tpuvo.refine.topology", "tpuvo.refine.close_loops"] + loop
+    sweeps = names[7:]
+    assert sweeps[0] == "tpuvo.refine.sweep.coarse" and len(sweeps) >= 2
+    assert set(sweeps[1:]) == {"tpuvo.refine.sweep.fine"}
+    outer, *inner = got
+    assert all(inside(s, outer) for s in inner)
+    assert all(inside(s, got[2]) for s in got[3:7])
+    assert all(a[2] <= b[1] for a, b in zip(got[3:7], got[4:7]))
+    assert all(a[2] <= b[1] for a, b in zip([got[1], got[2]] + got[7:], [got[2]] + got[7:]))
+
+    def entered(*a, **k):
+        raise AssertionError("record_function entered with no profiler recording")
+
+    monkeypatch.setattr(torch.profiler, "record_function", entered)
+    p, x, _ = run()
+    assert torch.isfinite(p).all() and torch.isfinite(x).all()

@@ -14,6 +14,10 @@ make it observable:
      DLT PnP + PICP polish (``ops/pnp.py``), batched over the pairs;
   4. loop edges Z_ij = T_i^-1 · T_j^pnp plus odometry edges into
      ``pgo_solve``: an L2 pass, then a robust pass.
+
+Each stage runs under a span (``utils/profiling.span``): ``tpuvo.loop.covis``
+(1-2), ``tpuvo.loop.reloc`` (3), ``tpuvo.loop.pgo.l2`` and
+``tpuvo.loop.pgo.robust`` (4).
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ import torch
 from tpuvo_torch.ba.posegraph import PoseGraph, odometry_edges, pgo_solve
 from tpuvo_torch.ops import lie
 from tpuvo_torch.ops.pnp import pnp_ransac, ransac_uniforms, topk_stable
+from tpuvo_torch.utils.profiling import span
 
 
 def _membership(cols, valid, n: int):
@@ -103,7 +108,7 @@ def close_loops(K, poses, map_xyz, map_valid, uv, obs_lm, obs_valid,
                 width: int, height: int, min_gap: int = 30, min_shared: int = 12,
                 max_edges: int = 32, pgo_iterations: int = 60,
                 loop_weight: float = 1.0, odo_weight: float = 25.0,
-                generator=None, uniforms=None):
+                generator=None, uniforms=None, record=None):
     """Detect loops, relocalize, and pose-graph-optimize.
 
     poses: (F, 4, 4) camera-in-world tracked trajectory; obs_lm/obs_valid:
@@ -111,16 +116,31 @@ def close_loops(K, poses, map_xyz, map_valid, uv, obs_lm, obs_valid,
     ``uniforms`` (max_edges, 64, N) when given, else from ``generator``
     (seed 0 when None; the JAX twin folds the pair into a PRNG key).
     Returns (poses_pgo, n_loop_edges, chi) — poses unchanged when no loop
-    qualifies."""
+    qualifies.
+
+    record: None, or a dict that receives each stage's outputs by name, as
+    tensors on the run's device (references, no copies): ``covis`` (F, F)
+    counts, ``pairs`` (E, 2) and ``pairs_valid`` (E,), ``uniforms`` (E, H,
+    N), the loop edges ``Z`` (E, 4, 4) and ``w`` (E,), the poses after the
+    L2 pass (``pgo_l2``) and after the robust pass (``pgo_robust``), each
+    pass's iterations (``pgo_l2_solve``, ``pgo_robust_solve``:
+    ``pgo_solve``'s record), the robust chi (``pgo_chi``) and the poses
+    returned (``poses_pgo``).  A later implementation of these stages (a
+    captured graph, say) must still hand out these names with these
+    meanings: the benchmark's check holds each stage to a plain reference
+    from them.  With None nothing is kept and nothing copied."""
     F = poses.shape[0]
     L = map_xyz.shape[0]
-    C = covisibility_counts(obs_lm, obs_valid & map_valid[obs_lm.long()], L)
-    pairs, _, pvalid = detect_loops(C, min_gap, min_shared, max_edges)
-    if uniforms is None:
-        generator = generator or torch.Generator().manual_seed(0)
-        uniforms = ransac_uniforms(generator, (max_edges, 64, obs_lm.shape[1]), poses.device)
-    Z, w = _relocalize_pairs(K, poses, map_xyz, map_valid, uv, obs_lm, obs_valid,
-                             pairs, pvalid, width, height, min_shared, uniforms)
+    with span("loop.covis"):
+        C = covisibility_counts(obs_lm, obs_valid & map_valid[obs_lm.long()], L)
+        pairs, _, pvalid = detect_loops(C, min_gap, min_shared, max_edges)
+    with span("loop.reloc"):
+        if uniforms is None:
+            generator = generator or torch.Generator().manual_seed(0)
+            uniforms = ransac_uniforms(generator, (max_edges, 64, obs_lm.shape[1]),
+                                       poses.device)
+        Z, w = _relocalize_pairs(K, poses, map_xyz, map_valid, uv, obs_lm, obs_valid,
+                                 pairs, pvalid, width, height, min_shared, uniforms)
 
     # information weighting: consecutive-frame relative poses are far more
     # accurate (~mm) than a PnP relocalization over >= min_shared points
@@ -133,11 +153,20 @@ def close_loops(K, poses, map_xyz, map_valid, uv, obs_lm, obs_valid,
         fixed=torch.arange(F, device=poses.device) < 1)
     # L2 pass: drifted loop residuals are enormous, and a robust kernel
     # would suppress exactly the edges that carry the information
-    graph, _ = pgo_solve(graph, iterations=pgo_iterations, kernel_threshold=1.0e8)
+    solves = ({}, {}) if record is not None else (None, None)
+    with span("loop.pgo.l2"):
+        graph_l2, _ = pgo_solve(graph, iterations=pgo_iterations, kernel_threshold=1.0e8,
+                                record=solves[0])
     # robust pass: with the drift redistributed, surviving large residuals
     # are bad relocalizations — saturate them out
-    graph, stats = pgo_solve(graph, iterations=max(pgo_iterations // 3, 10),
-                             kernel_threshold=1.0)
+    with span("loop.pgo.robust"):
+        graph_rob, stats = pgo_solve(graph_l2, iterations=max(pgo_iterations // 3, 10),
+                                     kernel_threshold=1.0, record=solves[1])
     n_loops = torch.sum(w > 0)
-    ok = torch.isfinite(graph.poses).all() & (n_loops > 0)
-    return torch.where(ok, graph.poses, poses), n_loops, stats.chi
+    ok = torch.isfinite(graph_rob.poses).all() & (n_loops > 0)
+    out = torch.where(ok, graph_rob.poses, poses)
+    if record is not None:
+        record.update(covis=C, pairs=pairs, pairs_valid=pvalid, uniforms=uniforms, Z=Z, w=w,
+                      pgo_l2=graph_l2.poses, pgo_robust=graph_rob.poses, pgo_chi=stats.chi,
+                      poses_pgo=out, pgo_l2_solve=solves[0], pgo_robust_solve=solves[1])
+    return out, n_loops, stats.chi

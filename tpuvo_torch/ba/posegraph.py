@@ -166,7 +166,7 @@ def _reduce_system(H, b, n_inl, reduce):
 
 
 def pgo_solve(graph: PoseGraph, iterations: int = 20, kernel_threshold: float = 1.0,
-              damping: float = 1e-6, damping_init: float = 1e-3, reduce=None):
+              damping: float = 1e-6, damping_init: float = 1e-3, reduce=None, record=None):
     """Adaptive-LM pose-graph solve: one trial step per iteration; a
     rejected or non-finite step rolls back with lambda x4, an accepted one
     relaxes x0.5 toward ``damping``.  ``accept`` is a tensor and every
@@ -176,7 +176,12 @@ def pgo_solve(graph: PoseGraph, iterations: int = 20, kernel_threshold: float = 
     ``reduce``: a sum over the ranks that share the poses (the sharded
     solver's all_reduce), given an edge block as ``graph``: each iteration
     sums [H | b | n_inliers] in one fused buffer and the trial chi in one
-    scalar, so every rank takes the same step and the same accept test."""
+    scalar, so every rank takes the same step and the same accept test.
+
+    record: None, or a dict whose ``iterations`` receives the state before
+    each LM iteration and after the last (``poses``, ``lam``, ``chi`` the
+    truncated objective), as tensors (references, no copies), so that a
+    plain reference can take each iteration from the solver's own state."""
     dev = graph.poses.device
     if reduce is None:
         chi_of = lambda ps: pgo_eval_chi(ps, graph, kernel_threshold)
@@ -187,7 +192,10 @@ def pgo_solve(graph: PoseGraph, iterations: int = 20, kernel_threshold: float = 
     lam = torch.full((), damping_init, dtype=torch.float32, device=dev)
     n_inl = torch.zeros((), dtype=torch.int32, device=dev)
     plans = assembly_plans(graph)  # the edges are the solve's: sorted once
+    its = record.setdefault("iterations", []) if record is not None else None
     for _ in range(iterations):
+        if its is not None:
+            its.append(dict(poses=poses, lam=lam, chi=chi_prev))
         H, b, _, n_inl = linearize_pgo(graph._replace(poses=poses), kernel_threshold, plans)
         if reduce is not None:
             H, b, n_inl = _reduce_system(H, b, n_inl, reduce)
@@ -201,6 +209,8 @@ def pgo_solve(graph: PoseGraph, iterations: int = 20, kernel_threshold: float = 
         lam = torch.where(accept, torch.clamp(lam * 0.5, min=damping),
                           torch.clamp(lam * 4.0, max=1e8))
         chi_prev = torch.where(accept, chi_new, chi_prev)
+    if its is not None:
+        its.append(dict(poses=poses, lam=lam, chi=chi_prev))
     return graph._replace(poses=poses), PGOStats(
         chi_prev, n_inl, torch.full((), iterations, dtype=torch.int32, device=dev))
 

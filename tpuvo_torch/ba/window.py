@@ -316,7 +316,8 @@ def _compact_active(obs_lm, obs_valid, L: int, La: int):
     return new_flat.reshape(obs_lm.shape), active_old
 
 
-def ba_solve(problem: BAProblem, K, width, height, cfg: BAConfig, compact: bool = True):
+def ba_solve(problem: BAProblem, K, width, height, cfg: BAConfig, compact: bool = True,
+             record=None):
     """Run cfg.iterations BA steps.
 
     compact=True renumbers the observed landmarks into a prefix of La =
@@ -325,7 +326,16 @@ def ba_solve(problem: BAProblem, K, width, height, cfg: BAConfig, compact: bool 
     step against the truncated robust objective: a rejected or non-finite
     step rolls back with lambda x4, an accepted one relaxes lambda x0.5
     toward cfg.damping.  ``accept`` is a tensor and every carried value
-    goes through ``torch.where`` — no ``if accept``, so no host sync."""
+    goes through ``torch.where`` — no ``if accept``, so no host sync.
+
+    record: None, or a dict that receives the solve as it ran, as tensors
+    (references, no copies): the problem in the solve's own numbering
+    (``obs_lm``, ``point_valid``, ``fixed``; ``slots``, each solve point's
+    map slot, or None when not compacted) and ``iterations``: the state
+    before each LM iteration and after the last (``poses`` world-in-camera,
+    ``points``, ``lam``, ``chi`` the truncated objective), so that a plain
+    reference can take each iteration from the solver's own state.  The
+    adaptive LM only."""
     Wf, N = problem.obs_lm.shape
     L = problem.points.shape[0]
     # at full width the global sweep has W·N = 200·128 > L = 8192: no
@@ -354,7 +364,14 @@ def ba_solve(problem: BAProblem, K, width, height, cfg: BAConfig, compact: bool 
         chi_prev = eval_robust_chi(prob, K, width, height, cfg)
         stats = BAStats(chi_prev, zero_i, zero_i)
         lam = torch.full((), cfg.damping_init, dtype=torch.float32, device=dev)
+        its = None
+        if record is not None:
+            its = []
+            record.update(obs_lm=prob.obs_lm, point_valid=prob.point_valid, fixed=prob.fixed,
+                          slots=active_old if use_compact else None, iterations=its)
         for _ in range(cfg.iterations):
+            if its is not None:
+                its.append(dict(poses=prob.poses, points=prob.points, lam=lam, chi=chi_prev))
             prob_new, stats_new = ba_step(prob, K, width, height, cfg, lam, plans=plans)
             chi_new = eval_robust_chi(prob_new, K, width, height, cfg)
             finite = (torch.isfinite(chi_new) & torch.isfinite(prob_new.poses).all()
@@ -367,6 +384,8 @@ def ba_solve(problem: BAProblem, K, width, height, cfg: BAConfig, compact: bool 
             lam = torch.where(accept, torch.clamp(lam * 0.5, min=cfg.damping),
                               torch.clamp(lam * 4.0, max=1e8))
             chi_prev = torch.where(accept, chi_new, chi_prev)
+        if its is not None:
+            its.append(dict(poses=prob.poses, points=prob.points, lam=lam, chi=chi_prev))
     else:
         stats = BAStats(torch.zeros((), dtype=torch.float32, device=dev), zero_i, zero_i)
         for _ in range(cfg.iterations):

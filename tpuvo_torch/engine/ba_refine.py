@@ -11,6 +11,11 @@
     the global refiner.
 
 Everything stays on the run's device; the host reads one chi per sweep.
+The loop refine's stages run under spans (``utils/profiling.span``):
+``tpuvo.refine`` around it all, ``tpuvo.refine.topology``,
+``tpuvo.refine.close_loops`` (with ``ba/loop``'s own inside) and one
+``tpuvo.refine.sweep.coarse`` / ``tpuvo.refine.sweep.fine`` a sweep, each
+sweep's span closed after the host has read its chi.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from tpuvo_torch.config import BAConfig, EngineConfig
 from tpuvo_torch.engine import vo
 from tpuvo_torch.ops import lie
 from tpuvo_torch.ops.match import match_descriptors
+from tpuvo_torch.utils.profiling import span
 
 
 def _global_topology(map_desc, point_valid, desc, valid, cfg: EngineConfig):
@@ -86,15 +92,15 @@ def _refine_run(poses_all, points, point_valid, map_desc, desc, valid, obs_uv, K
 
 
 def _global_sweep(poses_all, points, point_valid, obs_uv, obs_lm, obs_valid, K,
-                  cfg: EngineConfig, ba_cfg: BAConfig):
+                  cfg: EngineConfig, ba_cfg: BAConfig, record=None):
     """One full-trajectory BA sweep, poses 0/1 fixed.  Returns (poses,
-    points, chi, inliers, skipped)."""
+    points, chi, inliers, skipped).  record: ``ba_solve``'s."""
     F = poses_all.shape[0]
     fixed = torch.arange(F, device=points.device) < 2
     prob = BAProblem(poses=lie.inv_se3(poses_all), points=points, obs_uv=obs_uv,
                      obs_lm=obs_lm, obs_valid=obs_valid, point_valid=point_valid,
                      fixed=fixed)
-    prob2, stats = ba_solve(prob, K, cfg.width, cfg.height, ba_cfg)
+    prob2, stats = ba_solve(prob, K, cfg.width, cfg.height, ba_cfg, record=record)
     ok = torch.isfinite(prob2.poses).all()
     poses_out = torch.where((ok & ~fixed)[:, None, None], lie.inv_se3(prob2.poses), poses_all)
     pt_ok = ok & torch.isfinite(prob2.points).all(1)
@@ -105,7 +111,7 @@ def _global_sweep(poses_all, points, point_valid, obs_uv, obs_lm, obs_valid, K,
 def refine_trajectory_global(state, seq, poses, cfg: EngineConfig | None = None,
                              ba_cfg: BAConfig | None = None, n_sweeps: int = 2,
                              max_sweeps: int = 10, rel_improvement_stop: float = 0.01,
-                             topology=None):
+                             topology=None, record=None):
     """Joint BA over ALL poses + landmarks, on the device of ``state``.
 
     poses: (F, 4, 4) camera-in-world.  Returns (refined poses, refined
@@ -113,7 +119,14 @@ def refine_trajectory_global(state, seq, poses, cfg: EngineConfig | None = None,
     fine; once ``n_sweeps`` (and at least 2) have run, fine sweeps go on
     while the fine robust chi improves by more than
     ``rel_improvement_stop`` per sweep, up to ``max(max_sweeps,
-    n_sweeps)``.  topology: optional precomputed ``(obs_lm, obs_valid)``."""
+    n_sweeps)``.  topology: optional precomputed ``(obs_lm, obs_valid)``.
+
+    record: None, or a dict whose ``sweeps`` receives one dict a sweep, as
+    tensors on the run's device (references, no copies): ``kind``
+    ("coarse" or "fine"), the poses and points it started from
+    (``poses_before``, ``points_before``) and returned (``poses_after``,
+    ``points_after``), its ``chi``, ``inliers`` and ``skipped``, and its
+    LM iterations (``solve``: ``ba/window.ba_solve``'s record)."""
     cfg = cfg or EngineConfig()
     ba_cfg = ba_cfg or BAConfig()
     dev = state.map_xyz.device
@@ -138,11 +151,21 @@ def refine_trajectory_global(state, seq, poses, cfg: EngineConfig | None = None,
     prev_fine_chi = None
     i = 0
     max_sweeps = max(max_sweeps, n_sweeps)
+    sweeps = record.setdefault("sweeps", []) if record is not None else None
     while i < max_sweeps:
         sweep_cfg = coarse_cfg if i == 0 else fine_cfg
-        poses_all, points, chi, inliers, skipped = _global_sweep(
-            poses_all, points, point_valid, obs_uv, obs_lm, obs_valid, K, cfg, sweep_cfg)
-        chi = float(chi)
+        kind = "coarse" if i == 0 else "fine"
+        before = poses_all, points
+        solve = {} if sweeps is not None else None
+        with span("refine.sweep." + kind):
+            poses_all, points, chi_t, inliers, skipped = _global_sweep(
+                poses_all, points, point_valid, obs_uv, obs_lm, obs_valid, K, cfg, sweep_cfg,
+                record=solve)
+            chi = float(chi_t)
+        if sweeps is not None:
+            sweeps.append(dict(kind=kind, poses_before=before[0], points_before=before[1],
+                               poses_after=poses_all, points_after=points, chi=chi_t,
+                               inliers=inliers, skipped=skipped, solve=solve))
         stats_out.append({"sweep": i, "chi": chi, "inliers": int(inliers),
                           "skipped": bool(skipped)})
         i += 1
@@ -157,27 +180,52 @@ def refine_trajectory_global(state, seq, poses, cfg: EngineConfig | None = None,
 
 
 def refine_trajectory_loop(state, seq, poses, cfg: EngineConfig | None = None,
-                           ba_cfg: BAConfig | None = None, n_sweeps: int = 3):
+                           ba_cfg: BAConfig | None = None, n_sweeps: int = 3, record=None):
     """Loop-closure refinement: detect loops, PGO, then the graduated
     global BA on the same frozen topology.  Returns (poses, points, stats)
-    with a leading PGO stats entry."""
+    with a leading PGO stats entry.
+
+    Spans: ``tpuvo.refine`` around the whole refine; inside it
+    ``tpuvo.refine.topology``, ``tpuvo.refine.close_loops`` (holding
+    ``tpuvo.loop.covis``, ``.reloc``, ``.pgo.l2``, ``.pgo.robust``) and
+    one ``tpuvo.refine.sweep.coarse`` / ``.fine`` a sweep.
+
+    record: None, or a dict that receives each stage's inputs and outputs
+    by name, as tensors on the run's device (references, no copies):
+    ``poses_in`` (the tracked poses as the refine took them), the topology
+    ``obs_lm`` and ``obs_valid`` (F, N), ``loops`` (``close_loops``'s
+    record: co-visibility, pairs, uniforms, loop edges, each PGO pass) and
+    ``sweeps`` (``refine_trajectory_global``'s: each sweep's poses and
+    points before and after, with its chi); each PGO pass and each sweep
+    also hands out its LM iterations.  A later implementation (a
+    captured graph of a stage, say) must still hand out these names with
+    these meanings: the benchmark's check starts each stage of a plain
+    reference from them.  With None nothing is kept and nothing copied."""
     from tpuvo_torch.ba.loop import close_loops
 
-    cfg = cfg or EngineConfig()
-    ba_cfg = ba_cfg or BAConfig(window=int(poses.shape[0]), iterations=15,
-                                huber_threshold=500.0)
-    dev = state.map_xyz.device
-    K = vo._K(cfg, dev)
-    poses0 = _poses_on(poses, dev)
-    uv, desc, valid = _seq_tensors(seq, dev)
-    obs_lm, obs_valid = _global_topology(state.map_desc, state.map_valid, desc, valid, cfg)
-    poses_pgo, n_loops, chi = close_loops(
-        K, poses0, state.map_xyz, state.map_valid, uv, obs_lm, obs_valid,
-        cfg.width, cfg.height)
-    poses_ref, points_ref, stats = refine_trajectory_global(
-        state, seq, poses_pgo, cfg, ba_cfg, n_sweeps=n_sweeps, topology=(obs_lm, obs_valid))
-    return poses_ref, points_ref, [{"stage": "pgo", "n_loop_edges": int(n_loops),
-                                     "chi": float(chi)}] + stats
+    with span("refine"):
+        cfg = cfg or EngineConfig()
+        ba_cfg = ba_cfg or BAConfig(window=int(poses.shape[0]), iterations=15,
+                                    huber_threshold=500.0)
+        dev = state.map_xyz.device
+        K = vo._K(cfg, dev)
+        poses0 = _poses_on(poses, dev)
+        uv, desc, valid = _seq_tensors(seq, dev)
+        with span("refine.topology"):
+            obs_lm, obs_valid = _global_topology(state.map_desc, state.map_valid, desc, valid,
+                                                 cfg)
+        loops = {} if record is not None else None
+        with span("refine.close_loops"):
+            poses_pgo, n_loops, chi = close_loops(
+                K, poses0, state.map_xyz, state.map_valid, uv, obs_lm, obs_valid,
+                cfg.width, cfg.height, record=loops)
+        if record is not None:
+            record.update(poses_in=poses0, obs_lm=obs_lm, obs_valid=obs_valid, loops=loops)
+        poses_ref, points_ref, stats = refine_trajectory_global(
+            state, seq, poses_pgo, cfg, ba_cfg, n_sweeps=n_sweeps, topology=(obs_lm, obs_valid),
+            record=record)
+        return poses_ref, points_ref, [{"stage": "pgo", "n_loop_edges": int(n_loops),
+                                         "chi": float(chi)}] + stats
 
 
 def refine_trajectory(state, seq, poses, cfg: EngineConfig | None = None,

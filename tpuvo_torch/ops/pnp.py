@@ -69,7 +69,14 @@ def pnp_dlt(K, X, uv, valid):
     r2 = torch.cat([z4, Xh, -yn[..., None] * Xh], -1)
     A = torch.cat([r1 * w[..., None], r2 * w[..., None]], -2)       # (..., 2N, 12)
 
-    _, evecs = torch.linalg.eigh(A.mT @ A)
+    # a sampled landmark far enough out (an ill-posed triangulation, 1e24 m
+    # on the refine cell) overflows the masked sums above in float32 and
+    # leaves AᵀA NaN; torch's eigh raises on it for the whole batch, where
+    # JAX's gives NaN: such a matrix is solved as I and its hypothesis dropped
+    M = A.mT @ A
+    solvable = torch.isfinite(M).flatten(-2).all(-1)
+    M = torch.where(solvable[..., None, None], M, torch.eye(12, dtype=M.dtype, device=M.device))
+    _, evecs = torch.linalg.eigh(M)
     Pn = evecs[..., :, 0].reshape(evecs.shape[:-2] + (3, 4))        # least eigvec
 
     # un-normalize: X_h = T_norm @ [X; 1], T_norm = [[s I, -s mean], [0, 1]]
@@ -84,7 +91,11 @@ def pnp_dlt(K, X, uv, valid):
     P = torch.where(flip[..., None, None], -P, P)
 
     # closest rotation by SVD, then scale and t; with the sign fixed,
-    # det(U Vᵀ) = +1 except on degenerate input
+    # det(U Vᵀ) = +1 except on degenerate input.  torch's svd raises on a
+    # non-finite matrix (a dropped hypothesis's), where JAX's gives NaN:
+    # such a P is swapped for [I | 0] and its pose dropped below
+    finite = solvable & torch.isfinite(P).flatten(-2).all(-1)
+    P = torch.where(finite[..., None, None], P, torch.eye(3, 4, dtype=P.dtype, device=P.device))
     U, S, Vt = torch.linalg.svd(P[..., :, :3])
     d = torch.linalg.det(U @ Vt)
     D = torch.diag_embed(torch.stack([torch.ones_like(d), torch.ones_like(d), d], -1))
@@ -93,7 +104,7 @@ def pnp_dlt(K, X, uv, valid):
     t = P[..., :, 3] / torch.clamp(scale, min=1e-12)[..., None]
 
     T = lie.rt_to_T(R, t)
-    ok = (n_valid >= 6) & torch.isfinite(T).flatten(-2).all(-1)
+    ok = finite & (n_valid >= 6) & torch.isfinite(T).flatten(-2).all(-1)
     T = torch.where(ok[..., None, None], T, _eye4(T.shape[:-2], T))
     return T, ok
 
