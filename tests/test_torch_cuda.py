@@ -1059,3 +1059,132 @@ def test_replay_spans_on_card(dev):
         assert sum(s.start <= c.start and c.end <= s.end for s in spans) == 1
     assert tr.device
     assert not [e.name for e in tr.device if e.name.startswith("tpuvo.")]
+
+
+# ------------------------------------------- the pose graph's LM iteration --
+def pose_graph(dev, seed=5, n=200, extra=32, outliers=4):
+    """A perturbed pose graph of the refine's shape (200 poses, odometry and
+    32 loop edges), the first ``outliers`` loop edges corrupted, on which
+    the LM keeps some steps and rolls others back."""
+    from tpuvo_torch.ba.posegraph import PoseGraph, odometry_edges
+
+    rng = np.random.default_rng(seed)
+    xi = torch.as_tensor(0.05 * rng.standard_normal((n, 6)).astype(np.float32), device=dev)
+    poses = lie.se3_exp(xi)
+    ij, T, w = odometry_edges(poses, weight=25.0)
+    ex = torch.as_tensor(rng.integers(0, n, (extra, 2)), device=dev)
+    Tx = lie.inv_se3(poses[ex[:, 0]]) @ poses[ex[:, 1]]
+    bad = lie.se3_exp(torch.as_tensor(rng.standard_normal((outliers, 6)).astype(np.float32),
+                                      device=dev))
+    Tx = torch.cat([bad @ Tx[:outliers], Tx[outliers:]])
+    return PoseGraph(lie.se3_exp(0.5 * xi) @ poses, torch.cat([ij, ex]), torch.cat([T, Tx]),
+                     torch.cat([w, torch.ones(extra, device=dev)]),
+                     torch.arange(n, device=dev) == 0)
+
+
+def eager(monkeypatch, fn):
+    """``fn()`` with the graphs off: the eager loops, for a comparison only
+    (the package has no such switch)."""
+    from tpuvo_torch.utils import graphs
+
+    with monkeypatch.context() as m:
+        m.setattr(graphs, "on_card", lambda _t: False)
+        out = fn()
+    torch.cuda.synchronize()
+    return out
+
+
+def assert_bits(a, b, what=""):
+    if isinstance(a, torch.Tensor):
+        assert a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b), what
+    elif isinstance(a, dict):
+        assert a.keys() == b.keys(), what
+        for k in a:
+            assert_bits(a[k], b[k], f"{what}[{k}]")
+    elif isinstance(a, (tuple, list)):
+        assert len(a) == len(b), what
+        for i, (x, y) in enumerate(zip(a, b)):
+            assert_bits(x, y, f"{what}[{i}]")
+    else:
+        assert a == b, what
+
+
+def test_graphed_pgo_solve_equals_eager_on_card(dev, monkeypatch):
+    """``pgo_solve`` replaying its captured LM iteration against the eager
+    loop, under the L2 and the robust threshold: poses, chi, inlier count
+    and every recorded iteration (poses, lam, chi) bit for bit, with kept
+    and rolled-back steps among them; one capture per threshold, and a
+    second graph of the same shapes with other loop pairs replays it with
+    its own plans, to the bits of its own eager solve."""
+    from tpuvo_torch.ba.posegraph import pgo_solve
+    from tpuvo_torch.utils import graphs
+
+    g5, g6 = pose_graph(dev, 5), pose_graph(dev, 6)
+    assert not torch.equal(g5.edges_ij, g6.edges_ij)
+    graphs.clear()
+    for thr in (1.0e8, 1.0):
+        c0 = graphs.captures
+        for g in (g5, g6):
+            rec_e, rec_g = {}, {}
+            ref = eager(monkeypatch, lambda: pgo_solve(g, iterations=30, kernel_threshold=thr,
+                                                       record=rec_e))
+            r0 = graphs.replays
+            got = pgo_solve(g, iterations=30, kernel_threshold=thr, record=rec_g)
+            torch.cuda.synchronize()
+            assert graphs.replays - r0 == 30
+            assert_bits(got, ref, f"thr {thr}")
+            assert_bits(rec_g, rec_e, f"thr {thr}")
+            its = rec_g["iterations"]
+            kept = [bool(b["lam"] < a["lam"]) for a, b in zip(its, its[1:])]
+            assert any(kept) and not all(kept), thr
+        assert graphs.captures - c0 == 1
+    graphs.clear()
+
+
+def drifted_loop(dev, F=48, seed=3):
+    """A small drifted loop (``tests/test_torch_loop.loop_fixture``'s): the
+    arguments of ``close_loops`` after K, on ``dev``."""
+    gt = synthetic.make_loop_trajectory(F, step=0.5, seed=seed, turn_frames=6)
+    ext = float(np.abs(gt[:, :2]).max()) + 10.0
+    world = synthetic.make_world(seed, n_landmarks=1500, xy_extent=ext, z_range=(0.0, 6.0))
+    seq = synthetic.render_sequence(world, gt, CFG, pixel_noise=0.3, seed=seed)
+    poses = np.stack([synthetic.camera_pose_from_gt(g, CFG) for g in gt]).astype(np.float32)
+    drift = np.array([0.4, -0.3, 0.1, 0.0, 0.0, 0.08], np.float32)
+    xi = np.linspace(0, 1, F, dtype=np.float32)[:, None] * drift
+    drifted = (lie.se3_exp(torch.as_tensor(xi)).numpy() @ poses).astype(np.float32)
+    obs_lm = np.where(seq.valid, seq.id_real, 0).astype(np.int32)
+    args = (drifted, world.xyz, np.ones(world.xyz.shape[0], bool), seq.uv, obs_lm, seq.valid)
+    return tuple(torch.as_tensor(np.asarray(a), device=dev) for a in args)
+
+
+def test_close_loops_on_card_replays_its_pgo(dev, monkeypatch):
+    """``close_loops`` twice on the card: two captures on the first call and
+    none on the second, one replay per LM iteration (60 + 20) each time;
+    its result and record the eager call's bits; kernels A and D launched
+    as often as the eager call launches them (a replay credits what it
+    captured)."""
+    from tpuvo_torch.ba.loop import close_loops
+    from tpuvo_torch.ops.cuda import segsum
+    from tpuvo_torch.utils import graphs
+
+    args = drifted_loop(dev)
+    Kd = torch.as_tensor(K, device=dev)
+    run = lambda rec: close_loops(Kd, *args, 640, 480, record=rec)
+    counts = lambda: (picp_kernel.launches, segsum.launches)
+    graphs.clear()
+    rec_e = {}
+    n0 = counts()
+    ref = eager(monkeypatch, lambda: run(rec_e))
+    want = tuple(b - a for a, b in zip(n0, counts()))
+    assert int(ref[1]) > 0 and want == (1, 2 * 80)
+    for call in range(2):
+        c0, r0, n0 = graphs.captures, graphs.replays, counts()
+        rec_g = {}
+        got = run(rec_g)
+        torch.cuda.synchronize()
+        assert graphs.captures - c0 == (2 if call == 0 else 0)
+        assert graphs.replays - r0 == 60 + 20
+        assert tuple(b - a for a, b in zip(n0, counts())) == want
+        assert_bits(got, ref)
+        assert_bits(rec_g, rec_e)
+    graphs.clear()

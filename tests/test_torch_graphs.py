@@ -16,6 +16,10 @@ on the CPU.
 3. Parity with JAX: the graphed SLAM step from JAX's own carry against
    ``jslam.slam_step_jit``, on frames with and without the local BA, at
    ``tests/test_torch_slam.py``'s tolerances.
+4. The pose graph's LM iteration: a whole ``pgo_solve`` runs under the
+   guard (a conversion to ``meta`` passes it), and on ``FakeGraph`` it and
+   ``close_loops`` give the eager loop's bits and record, one capture per
+   threshold and one replay per iteration.
 """
 
 import jax
@@ -27,10 +31,12 @@ from torch.utils._python_dispatch import _disable_current_modes
 from test_torch_picp import kernel_route
 from test_torch_slam import COUNTS, both_cfgs as slam_cfgs, fixture as slam_fixture, jax_carry
 from tpuvo.engine import slam as jslam, vo as jvo
+from tpuvo_torch.ba import posegraph as tpg
 from tpuvo_torch.config import EngineConfig, MatcherConfig, PICPConfig
 from tpuvo_torch.data import synthetic
 from tpuvo_torch.engine import slam as tslam, vo as tvo
 from tpuvo_torch.engine.state import VOState
+from tpuvo_torch.ops import lie as tlie
 from tpuvo_torch.ops.cuda import match_kernel as tm, picp_kernel as tk, smalleig as tc
 from tpuvo_torch.utils import graphs
 from tpuvo_torch.utils.graphs import GraphCaptureError, host_sync_guard
@@ -179,7 +185,9 @@ def test_guard_names_the_op_that_syncs(case):
     A = torch.eye(3) * 2
     op = {"item": lambda: x.sum().item(), "bool": lambda: bool((x > 0).all()),
           "mask": lambda: x[x > 2], "nonzero": lambda: torch.nonzero(x),
-          "host data": lambda: torch.tensor([1.0, 2.0]), "to host": lambda: x.to("meta"),
+          "host data": lambda: torch.tensor([1.0, 2.0]),
+          # a copy to the card, as dispatched (no card here to run it)
+          "to host": lambda: torch.ops.aten._to_copy.default(x, device=torch.device("cuda")),
           "eigh": lambda: torch.linalg.eigh(A), "svd": lambda: torch.linalg.svd(A),
           "solve": lambda: torch.linalg.solve(A, x.T)}[case]
     with pytest.raises(GraphCaptureError, match="capturing the probe: aten::"):
@@ -492,3 +500,127 @@ def test_graphed_slam_step_from_jax_carry(fake, branch):
         carry = cj2
     assert any(fired) and not all(fired)
     assert graphs.captures == 2 and graphs.replays == 13
+
+
+# ------------------------------------------- 4. the pose graph's LM iteration --
+def pose_graph(seed=5, n=40, extra=60, outliers=8):
+    """A perturbed pose graph: odometry and ``extra`` random loop edges, the
+    first ``outliers`` of them corrupted, on which the LM keeps some steps
+    and rolls others back under either threshold."""
+    rng = np.random.default_rng(seed)
+    xi = torch.as_tensor(0.05 * rng.standard_normal((n, 6)).astype(np.float32))
+    poses = tlie.se3_exp(xi)
+    ij, T, w = tpg.odometry_edges(poses)
+    ex = torch.as_tensor(rng.integers(0, n, (extra, 2)))
+    Tx = tlie.inv_se3(poses[ex[:, 0]]) @ poses[ex[:, 1]]
+    bad = tlie.se3_exp(torch.as_tensor(rng.standard_normal((outliers, 6)).astype(np.float32)))
+    Tx = torch.cat([bad @ Tx[:outliers], Tx[outliers:]])
+    return tpg.PoseGraph(tlie.se3_exp(0.5 * xi) @ poses, torch.cat([ij, ex]), torch.cat([T, Tx]),
+                         torch.cat([w, torch.ones(extra)]), torch.arange(n) == 0)
+
+
+def check_pgo_record(its, graph, out, iterations):
+    """``pgo_solve``'s record: iterations + 1 states of poses, lam and chi,
+    from the input to the output, no two sharing storage, with kept and
+    rolled-back steps among them."""
+    assert len(its) == iterations + 1
+    assert all(set(e) == {"poses", "lam", "chi"} for e in its)
+    ptrs = [t.untyped_storage().data_ptr() for e in its for t in e.values()]
+    assert len(set(ptrs)) == len(ptrs)
+    assert torch.equal(its[0]["poses"], graph.poses) and torch.equal(its[-1]["poses"], out.poses)
+    kept = [bool(b["lam"] < a["lam"]) for a, b in zip(its, its[1:])]
+    assert any(kept) and not all(kept)
+
+
+def test_guard_passes_a_conversion_to_meta():
+    """functorch's shape propagation converts to ``meta`` inside a jvp: no
+    bytes move, and the guard lets it pass; a copy between the host and
+    the card is still named (read from ``_sync_reason`` itself: no card
+    here)."""
+    x = torch.ones(3)
+    with host_sync_guard("the probe") as g:
+        x.to("meta")
+        x.to(device="meta", dtype=torch.float64)
+    assert g.last_op.startswith("aten::")
+    to_copy = torch.ops.aten._to_copy.default
+    assert graphs._sync_reason(to_copy, (x,), {"device": torch.device("meta")}) is None
+    for dev in ("cuda", "cuda:0"):
+        for card in (False, True):
+            assert (graphs._sync_reason(to_copy, (x,), {"device": torch.device(dev)}, card)
+                    == "copies between the host and the card")
+
+
+def test_guard_of_a_card_capture_passes_host_arithmetic():
+    """Guarding a capture on the card, an op on CPU tensors alone stays on
+    the host and cannot sync with the card (functorch's ``jacfwd`` counts
+    its basis's offsets in a CPU tensor in some torch versions): it
+    passes, and a copy to the card does not.  Guarding CPU tensors, every
+    op is checked as if on the card."""
+    n = torch.tensor([6, 6])
+    host = [(torch.ops.aten.lift_fresh.default, (n,), {}),
+            (torch.ops.aten._local_scalar_dense.default, (n[0],), {}),
+            (torch.ops.aten.zeros.default, ([3],), {"device": torch.device("cpu")})]
+    for func, args, kw in host:
+        assert graphs._sync_reason(func, args, kw, card=True) is None, func
+    assert graphs._sync_reason(*host[0], card=False) == "makes a tensor from host data"
+    assert graphs._sync_reason(*host[1], card=False) == "reads a device value on the host"
+    assert (graphs._sync_reason(torch.ops.aten._to_copy.default, (n,),
+                                {"device": torch.device("cuda")}, card=True)
+            == "copies between the host and the card")
+
+
+@pytest.mark.parametrize("thr", [1.0e8, 1.0], ids=["L2", "robust"])
+def test_pgo_solve_is_capture_safe(thr):
+    """A whole ``pgo_solve`` (its plans, first chi and LM iterations) runs
+    under the guard: the LM iteration stays capturable.  Its record."""
+    g = pose_graph()
+    rec = {}
+    with host_sync_guard("the pose graph's solve"):
+        out, stats = tpg.pgo_solve(g, iterations=12, kernel_threshold=thr, record=rec)
+    check_pgo_record(rec["iterations"], g, out, 12)
+    assert torch.equal(stats.chi, rec["iterations"][-1]["chi"])
+
+
+def test_graphed_pgo_solve_equals_eager(fake):
+    """``pgo_solve`` on the (fake) graph: the eager poses, chi, inlier
+    count and every recorded iteration bit for bit; one capture per
+    threshold, one replay an iteration; a second graph of the same shapes
+    with other loop pairs replays the same capture with its own plans."""
+    graphs_ = [pose_graph(5), pose_graph(6)]
+    for thr in (1.0e8, 1.0):
+        for g in graphs_:
+            fake(False)
+            rec_e = {}
+            ref = tpg.pgo_solve(g, iterations=12, kernel_threshold=thr, record=rec_e)
+            fake(True)
+            rec_g = {}
+            got = tpg.pgo_solve(g, iterations=12, kernel_threshold=thr, record=rec_g)
+            assert_same(got, ref, f"thr {thr}")
+            assert_same(rec_g, rec_e, f"thr {thr}")
+            check_pgo_record(rec_g["iterations"], g, got[0], 12)
+    assert not torch.equal(graphs_[0].edges_ij, graphs_[1].edges_ij)
+    assert graphs.captures == 2 and graphs.replays == 4 * 12
+
+
+def test_close_loops_replays_its_pgo(fake):
+    """``close_loops`` with its two PGO passes on the (fake) graphs: the
+    eager result and record bit for bit, two captures on the first call
+    and none on the second, one replay per LM iteration (60 + 20)."""
+    from test_torch_loop import KT, T, loop_fixture
+    from tpuvo_torch.ba import loop as tloop
+
+    seq, world, _, drifted, obs_lm = loop_fixture()
+    args = (drifted, world.xyz, np.ones(world.xyz.shape[0], bool), seq.uv, obs_lm, seq.valid)
+    fake(False)
+    rec_e = {}
+    ref = tloop.close_loops(KT, *map(T, args), 640, 480, record=rec_e)
+    fake(True)
+    for call in range(2):
+        c0, r0 = graphs.captures, graphs.replays
+        rec_g = {}
+        got = tloop.close_loops(KT, *map(T, args), 640, 480, record=rec_g)
+        assert_same(got, ref)
+        assert_same(rec_g, rec_e)
+        assert graphs.captures - c0 == (2 if call == 0 else 0)
+        assert graphs.replays - r0 == 60 + 20
+    assert int(ref[1]) > 0

@@ -119,16 +119,17 @@ def close_loops(K, poses, map_xyz, map_valid, uv, obs_lm, obs_valid,
     qualifies.
 
     record: None, or a dict that receives each stage's outputs by name, as
-    tensors on the run's device (references, no copies): ``covis`` (F, F)
-    counts, ``pairs`` (E, 2) and ``pairs_valid`` (E,), ``uniforms`` (E, H,
-    N), the loop edges ``Z`` (E, 4, 4) and ``w`` (E,), the poses after the
-    L2 pass (``pgo_l2``) and after the robust pass (``pgo_robust``), each
-    pass's iterations (``pgo_l2_solve``, ``pgo_robust_solve``:
-    ``pgo_solve``'s record), the robust chi (``pgo_chi``) and the poses
-    returned (``poses_pgo``).  A later implementation of these stages (a
-    captured graph, say) must still hand out these names with these
-    meanings: the benchmark's check holds each stage to a plain reference
-    from them.  With None nothing is kept and nothing copied."""
+    tensors on the run's device (the stages' own outputs, not copies):
+    ``covis`` (F, F) counts, ``pairs`` (E, 2) and ``pairs_valid`` (E,),
+    ``uniforms`` (E, H, N), the loop edges ``Z`` (E, 4, 4) and ``w`` (E,),
+    the poses after the L2 pass (``pgo_l2``) and after the robust pass
+    (``pgo_robust``), each pass's iterations (``pgo_l2_solve``,
+    ``pgo_robust_solve``: ``pgo_solve``'s record, whose iterates are copies
+    of its graph's buffers on the card), the robust chi (``pgo_chi``) and
+    the poses returned (``poses_pgo``).  A later implementation of these
+    stages must still hand out these names with these meanings: the
+    benchmark's check holds each stage to a plain reference from them.
+    With None nothing is kept and nothing copied."""
     F = poses.shape[0]
     L = map_xyz.shape[0]
     with span("loop.covis"):

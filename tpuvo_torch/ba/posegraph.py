@@ -14,7 +14,9 @@ H is assembled into (F, F) 6x6 blocks by fixed-order segmented sums
 (``ba/assembly``: the edges' targets sorted once per solve, so two runs give
 the same bits on the card) and solved with one damped Cholesky of the
 (6F, 6F) system.  The LM loop carries every
-value through ``torch.where``, so a solve makes no host round-trip.
+value through ``torch.where``, so a solve makes no host round-trip; on the
+card each LM iteration is one replay of a captured graph of it
+(``utils/graphs``), which launches the eager iteration's kernels in order.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from tpuvo_torch.ba import assembly
 from tpuvo_torch.engine.state import tuple_from_numpy, tuple_to_numpy
 from tpuvo_torch.ops import lie
 from tpuvo_torch.ops.linalg_small import cholesky_solve_nan
+from tpuvo_torch.utils import graphs
 
 
 class PoseGraph(NamedTuple):
@@ -165,6 +168,87 @@ def _reduce_system(H, b, n_inl, reduce):
             buf[0, F * 6 + 1].to(torch.int32))
 
 
+def _chi(poses, graph: PoseGraph, kernel_threshold: float, reduce):
+    chi = pgo_eval_chi(poses, graph, kernel_threshold)
+    return chi if reduce is None else reduce(chi.reshape(1))[0]
+
+
+def _lm_iteration(graph: PoseGraph, plans, lam, chi_prev, kernel_threshold: float,
+                  damping: float, reduce=None):
+    """One LM iteration from ``graph.poses``, damping ``lam`` and the
+    truncated chi ``chi_prev`` there: the trial step, kept or rolled back
+    by the accept test.  Returns (poses, lam, chi, inlier count)."""
+    poses = graph.poses
+    H, b, _, n_inl = linearize_pgo(graph, kernel_threshold, plans)
+    if reduce is not None:
+        H, b, n_inl = _reduce_system(H, b, n_inl, reduce)
+    dx = _solve_system(H, b, graph.fixed, lam)
+    new_poses = lie.se3_exp(dx) @ poses
+    new_poses = torch.where(graph.fixed[:, None, None], poses, new_poses)
+    chi_new = _chi(new_poses, graph, kernel_threshold, reduce)
+    accept = (torch.isfinite(chi_new) & torch.isfinite(new_poses).all()
+              & (chi_new <= chi_prev))
+    return (torch.where(accept, new_poses, poses),
+            torch.where(accept, torch.clamp(lam * 0.5, min=damping),
+                        torch.clamp(lam * 4.0, max=1e8)),
+            torch.where(accept, chi_new, chi_prev), n_inl)
+
+
+def _eager_iterations(graph: PoseGraph, plans, state, iterations: int, kernel_threshold: float,
+                      damping: float, reduce=None, its=None):
+    """``iterations`` LM iterations op by op from ``state`` (poses, lam,
+    chi, inlier count); ``its`` receives the state before each."""
+    for _ in range(iterations):
+        poses, lam, chi, _ = state
+        if its is not None:
+            its.append(dict(poses=poses, lam=lam, chi=chi))
+        state = _lm_iteration(graph._replace(poses=poses), plans, lam, chi, kernel_threshold,
+                              damping, reduce)
+    return state
+
+
+def _step_body(kernel_threshold: float, damping: float):
+    """The captured LM iteration: the carried poses, lam, chi and inlier
+    count read from the Program's buffers and written back."""
+    def body(b):
+        g = b["graph"]
+        for dst, src in zip((g.poses, b["lam"], b["chi"], b["n_inl"]),
+                            _lm_iteration(g, b["plans"], b["lam"], b["chi"], kernel_threshold,
+                                          damping)):
+            dst.copy_(src)
+
+    return body
+
+
+def _replayed_iterations(graph: PoseGraph, plans, state, iterations: int,
+                         kernel_threshold: float, damping: float, its=None):
+    """``_eager_iterations`` as replays of one captured LM iteration: a
+    ``utils/graphs`` Program per graph signature, threshold and damping
+    floor (host floats the graph bakes in).  The solve's graph, plans and
+    state are copied into its buffers, which the next solve of the key
+    overwrites, so ``its`` receives copies."""
+    def make():
+        b = dict(graph=PoseGraph(*(t.clone() for t in graph)),
+                 plans=tuple(type(p)(*(t.clone() for t in p)) for p in plans),
+                 **{k: t.clone() for k, t in zip(("lam", "chi", "n_inl"), state[1:])})
+        return graphs.Program("pgo_step", b, (b["graph"].poses, b["lam"], b["chi"], b["n_inl"]))
+
+    prog = graphs.cached(("pgo_step", graphs.signature(graph), kernel_threshold, damping), make)
+    b = prog.buffers
+    carried = (b["graph"].poses, b["lam"], b["chi"], b["n_inl"])
+    for dst, src in zip((*b["graph"], *(t for p in b["plans"] for t in p), *carried[1:]),
+                        (*graph, *(t for p in plans for t in p), *state[1:])):
+        dst.copy_(src)
+    body = _step_body(kernel_threshold, damping)
+    for k in range(iterations):
+        if its is not None:
+            if k:
+                state = tuple(t.clone() for t in carried)
+            its.append(dict(poses=state[0], lam=state[1], chi=state[2]))
+        prog.replay(None, body)
+    return tuple(t.clone() for t in carried)
+
+
 def pgo_solve(graph: PoseGraph, iterations: int = 20, kernel_threshold: float = 1.0,
               damping: float = 1e-6, damping_init: float = 1e-3, reduce=None, record=None):
     """Adaptive-LM pose-graph solve: one trial step per iteration; a
@@ -173,42 +257,37 @@ def pgo_solve(graph: PoseGraph, iterations: int = 20, kernel_threshold: float = 
     carried value goes through ``torch.where`` (no host sync).  Returns
     (optimized PoseGraph, PGOStats).
 
+    On the card (``graphs.on_card``) an LM iteration is one replay of its
+    captured graph (``_replayed_iterations``), which runs the kernels of
+    the eager iteration in their order: the same bits.  The plans, the
+    first chi and the copies in and out stay eager, once a solve.
+
     ``reduce``: a sum over the ranks that share the poses (the sharded
     solver's all_reduce), given an edge block as ``graph``: each iteration
     sums [H | b | n_inliers] in one fused buffer and the trial chi in one
     scalar, so every rank takes the same step and the same accept test.
+    Such a solve runs its iterations eagerly, on the card too.
 
     record: None, or a dict whose ``iterations`` receives the state before
     each LM iteration and after the last (``poses``, ``lam``, ``chi`` the
-    truncated objective), as tensors (references, no copies), so that a
-    plain reference can take each iteration from the solver's own state."""
+    truncated objective), as tensors on the solve's device, so that a plain
+    reference can take each iteration from the solver's own state: the
+    first holds the solve's input poses, the last what it returns; no two
+    entries share storage (on the card, copies of the graph's buffers)."""
     dev = graph.poses.device
-    if reduce is None:
-        chi_of = lambda ps: pgo_eval_chi(ps, graph, kernel_threshold)
-    else:
-        chi_of = lambda ps: reduce(pgo_eval_chi(ps, graph, kernel_threshold).reshape(1))[0]
-    poses = graph.poses
-    chi_prev = chi_of(poses)
+    chi_prev = _chi(graph.poses, graph, kernel_threshold, reduce)
     lam = torch.full((), damping_init, dtype=torch.float32, device=dev)
     n_inl = torch.zeros((), dtype=torch.int32, device=dev)
     plans = assembly_plans(graph)  # the edges are the solve's: sorted once
     its = record.setdefault("iterations", []) if record is not None else None
-    for _ in range(iterations):
-        if its is not None:
-            its.append(dict(poses=poses, lam=lam, chi=chi_prev))
-        H, b, _, n_inl = linearize_pgo(graph._replace(poses=poses), kernel_threshold, plans)
-        if reduce is not None:
-            H, b, n_inl = _reduce_system(H, b, n_inl, reduce)
-        dx = _solve_system(H, b, graph.fixed, lam)
-        new_poses = lie.se3_exp(dx) @ poses
-        new_poses = torch.where(graph.fixed[:, None, None], poses, new_poses)
-        chi_new = chi_of(new_poses)
-        accept = (torch.isfinite(chi_new) & torch.isfinite(new_poses).all()
-                  & (chi_new <= chi_prev))
-        poses = torch.where(accept, new_poses, poses)
-        lam = torch.where(accept, torch.clamp(lam * 0.5, min=damping),
-                          torch.clamp(lam * 4.0, max=1e8))
-        chi_prev = torch.where(accept, chi_new, chi_prev)
+    state = (graph.poses, lam, chi_prev, n_inl)
+    if reduce is None and graphs.on_card(graph.poses) and iterations > 0:
+        state = _replayed_iterations(graph, plans, state, iterations, float(kernel_threshold),
+                                     float(damping), its)
+    else:
+        state = _eager_iterations(graph, plans, state, iterations, kernel_threshold, damping,
+                                  reduce, its)
+    poses, lam, chi_prev, n_inl = state
     if its is not None:
         its.append(dict(poses=poses, lam=lam, chi=chi_prev))
     return graph._replace(poses=poses), PGOStats(

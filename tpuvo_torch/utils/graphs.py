@@ -152,15 +152,31 @@ SYNC_OPS = frozenset({
 })
 
 
-def _sync_reason(func, args, kwargs):
+def _on_host(tensors, kwargs) -> bool:
+    """Whether an op with these tensors and keywords stays on the host: no
+    tensor and no ``device`` keyword on another device than the CPU (or
+    ``meta``, which holds no data)."""
+    dev = (kwargs or {}).get("device")
+    return (all(t.device.type in ("cpu", "meta") for t in tensors)
+            and (dev is None or torch.device(dev).type in ("cpu", "meta")))
+
+
+def _sync_reason(func, args, kwargs, card: bool = False):
     """Why ``func`` on these arguments would read the device from the host
-    (or copy between host and card), or None."""
+    (or copy between host and card), or None.  ``card``: the step's own
+    tensors are on the card, so an op that stays on the host (arithmetic on
+    CPU tensors, such as the offsets of a Jacobian's basis that some torch
+    versions' ``jacfwd`` computes in one) cannot sync with it.  Without
+    ``card`` every op is checked, so that a step run on CPU tensors is
+    checked as if they were on the card."""
+    tensors = [a for a in (*args, *(kwargs or {}).values()) if isinstance(a, torch.Tensor)]
+    if card and _on_host(tensors, kwargs):
+        return None
     name = func.overloadpacket.__name__
     if name in SYNC_OPS:
         return "reads a device value on the host"
     if name == "lift_fresh":
         return "makes a tensor from host data"
-    tensors = [a for a in (*args, *(kwargs or {}).values()) if isinstance(a, torch.Tensor)]
     if name in ("index", "index_put", "index_put_") and len(args) > 1:
         if any(isinstance(i, torch.Tensor) and i.dtype in (torch.bool, torch.uint8)
                for i in args[1] if i is not None):
@@ -169,6 +185,9 @@ def _sync_reason(func, args, kwargs):
         devs = {t.device.type for t in tensors}
         if "device" in (kwargs or {}) and kwargs["device"] is not None:
             devs.add(torch.device(kwargs["device"]).type)
+        # a meta tensor has no data (functorch's shape propagation makes them
+        # inside a jvp): a conversion to it moves no bytes
+        devs.discard("meta")
         if len(devs) > 1:
             return "copies between the host and the card"
     return None
@@ -179,15 +198,18 @@ class host_sync_guard(TorchDispatchMode):
     host on CUDA (``SYNC_OPS``, boolean-mask indexing, a tensor made from
     host data, a copy between host and card): the ops a graph cannot
     capture.  The same check on CPU tensors tells whether a step could be
-    captured on the card.  ``last_op`` is the last op dispatched."""
+    captured on the card.  ``card``: the guarded step runs on the card, and
+    ops that stay on the host pass (``_sync_reason``).  ``last_op`` is the
+    last op dispatched."""
 
-    def __init__(self, what: str = "the step"):
+    def __init__(self, what: str = "the step", card: bool = False):
         super().__init__()
         self.what = what
+        self.card = card
         self.last_op = None
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        reason = _sync_reason(func, args, kwargs)
+        reason = _sync_reason(func, args, kwargs, self.card)
         if reason is not None:
             raise GraphCaptureError(f"capturing {self.what}: {func.name()} {reason}")
         self.last_op = func.name()
@@ -282,10 +304,11 @@ class Program:
                 t.copy_(s)
 
         launches = []
+        card = any(t.is_cuda for t in self.carried)
 
         def captured():
             before = _counts()
-            with host_sync_guard(f"{self.name} [{branch}]") as guard:
+            with host_sync_guard(f"{self.name} [{branch}]", card=card) as guard:
                 try:
                     out = body(self.buffers)
                 except GraphCaptureError:
