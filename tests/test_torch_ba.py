@@ -2,9 +2,10 @@
 (W=8, L=256, the windows of tests/test_ba.py:make_ba_problem).
 
 Tolerances: normal-equation blocks rtol 1e-5 of each block's largest
-entry (fp32 sums in another order); solved poses atol 1e-5, points atol
-1e-3 (a landmark seen twice at 0.3 px noise moves ~1e-4 per 1e-7 of pose);
-integer stats and renumberings exact.
+entry (fp32 sums in another order); the reduced camera matrix S entry by
+entry to the forward error of its sums (``schur_bound``); solved poses
+atol 1e-5, points atol 1e-3 (a landmark seen twice at 0.3 px noise moves
+~1e-4 per 1e-7 of pose); integer stats and renumberings exact.
 """
 
 import jax
@@ -20,6 +21,7 @@ from tpuvo.ops import lie as jlie
 from tpuvo_torch.ba import window as tw
 from tpuvo_torch.config import BAConfig, EngineConfig
 from tpuvo_torch.ops.linalg_small import cholesky_solve_nan
+import xdist_threads  # noqa: F401  (torch's share of the cores under xdist)
 
 CFG = JCfg()
 KN = CFG.K()
@@ -67,6 +69,37 @@ def close_rel(t, j, rtol=1e-5, msg=""):
     np.testing.assert_allclose(t.numpy(), j, atol=rtol * scale, rtol=0, err_msg=msg)
 
 
+EPS = float(np.finfo(np.float32).eps)
+
+
+def schur_bound(Hpp, Wfl, Hll_inv_t, Hll_inv_j):
+    """Entrywise bound (6W, 6W) on the difference of two float32
+    evaluations of S = Hpp - Σ_l W_l Hll⁻¹_l W_lᵀ, computed in float64 from
+    the inputs.  Each evaluation forms W Hll⁻¹ (3-term sums: eps·3 of
+    |W||Hll⁻¹||W|ᵀ once multiplied by W) and sums 3L products and Hpp
+    into each entry (eps·(3L + 1) of the magnitudes summed into it); the
+    two Hll⁻¹, each of the same Hll and held to each other by
+    ``invert_hll``'s comparison, differ by their own difference carried
+    through W.  S cancels most of Hpp, so a bound relative to S, or to
+    max |Hpp|, is not one the sums obey."""
+    Hpp, W, Ht, Hj = (np.asarray(x, np.float64) for x in (Hpp, Wfl, Hll_inv_t, Hll_inv_j))
+    nW, L = Hpp.shape[0], W.shape[0]
+    aW = np.abs(W)
+    WH = np.einsum("lfij,ljk->lfik", W, Hj)
+    summed = (np.einsum("lfik,lgjk->figj", np.abs(WH), aW)
+              + np.einsum("fij,fg->figj", np.abs(Hpp), np.eye(nW)))
+    chained = np.einsum("lfij,ljk,lgmk->figm", aW, np.abs(Hj), aW)
+    inverses = np.einsum("lfij,ljk,lgmk->figm", aW, np.abs(Ht - Hj), aW)
+    one = EPS * (3 * chained + (3 * L + 1) * summed)
+    return (2 * one + inverses).reshape(6 * nW, 6 * nW)
+
+
+def assert_within(t, j, bound, what):
+    d = np.abs(np.asarray(t, np.float64) - np.asarray(j, np.float64))
+    worst = float(np.max(d / np.maximum(bound, 1e-300)))
+    assert worst <= 1.0, f"{what}: {worst:.3g} times its bound"
+
+
 LIN_CFGS = {
     "default": {},
     "refine": dict(cull_bounds=False, keep_outliers=True, huber_threshold=1e8),
@@ -108,33 +141,44 @@ def test_per_obs_blocks_match_jax():
             close_rel(a, b)
 
 
+def schur_inputs():
+    p = make_problem()
+    lj = linearize_j(both(p)[0], KJ, *WH, JBA())
+    return p, lj, [torch.as_tensor(np.array(x)) for x in lj[:5]]
+
+
+def assert_schur_matches_jax(lt, lj, fixed, damping):
+    """schur_parts' and schur_reduce's S against JAX's, entry by entry
+    within ``schur_bound`` (the gauge-fixed S: its free block scaled as
+    finalize_reduced scales it, plus that step's own rounding)."""
+    Sj, bj, Hj = schur_parts_j(*lj[:5], damping)
+    St, bt, Ht = tw.schur_parts(*lt, damping)
+    bound = schur_bound(lj[0], lj[4], Ht, Hj)
+    assert_within(St, Sj, bound, "S")
+    close_rel(bt, bj, msg="b_red")
+    Rj = schur_reduce_j(*lj[:5], jnp.asarray(fixed), damping)
+    Rt = tw.schur_reduce(*lt, torch.as_tensor(fixed), damping)
+    free = np.repeat(~fixed, 6)
+    scale = np.outer(free, free) * (1.0 + damping * np.eye(free.size))
+    assert_within(Rt[0], Rj[0], bound * scale + 4 * EPS * np.abs(np.asarray(Rj[0])), "S reduced")
+    close_rel(Rt[2], Rj[2])
+
+
 def test_schur_pieces_match_jax():
     """invert_hll, schur_parts, finalize_reduced, schur_reduce,
     backsubstitute and eval_robust_chi, each fed the same inputs."""
-    p = make_problem()
+    p, lj, lt = schur_inputs()
     jp, tp = both(p)
-    lj = linearize_j(jp, KJ, *WH, JBA())
-    lt = [torch.as_tensor(np.array(x)) for x in lj[:5]]
+    fixed = p["fixed"]
     for damping in (1e-6, 0.3):
         close_rel(tw.invert_hll(lt[2], damping), invert_hll_j(lj[2], damping))
+        assert_schur_matches_jax(lt, lj, fixed, damping)
         Sj, bj, _ = schur_parts_j(*lj[:5], damping)
-        St, bt, _ = tw.schur_parts(*lt, damping)
-        # S = Hpp - Σ W Hll^-1 Wᵀ cancels most of Hpp: the rounding of
-        # ~100 terms at Hpp's scale, summed in another order, is relative
-        # to Hpp, not to S (readings: 1.4e-5 of max |Hpp|)
-        hpp = float(np.abs(np.asarray(lj[0])).max())
-        np.testing.assert_allclose(St.numpy(), np.asarray(Sj), atol=1e-4 * hpp, rtol=0)
-        close_rel(bt, bj, msg="b_red")
-        fixed = p["fixed"]
         Fj = finalize_reduced_j(Sj, bj, jnp.asarray(fixed), damping)
         Ft = tw.finalize_reduced(torch.as_tensor(np.array(Sj)), torch.as_tensor(np.array(bj)),
                                  torch.as_tensor(fixed), damping)
         close_rel(Ft[0], Fj[0])
         close_rel(Ft[1], Fj[1])
-        Rj = schur_reduce_j(*lj[:5], jnp.asarray(fixed), damping)
-        Rt = tw.schur_reduce(*lt, torch.as_tensor(fixed), damping)
-        close_rel(Rt[0], Rj[0])
-        close_rel(Rt[2], Rj[2])
     dx = np.random.default_rng(0).normal(0, 1e-2, (8, 6)).astype(np.float32)
     Hinv = invert_hll_j(lj[2], 1e-6)
     # landmark steps through near-singular Hll blocks: the points' atol 1e-3
@@ -145,6 +189,20 @@ def test_schur_pieces_match_jax():
         cj = eval_robust_chi_j(jp, KJ, *WH, JBA(cull_bounds=cull, huber_threshold=2.0))
         ct = tw.eval_robust_chi(tp, KT, *WH, BAConfig(cull_bounds=cull, huber_threshold=2.0))
         np.testing.assert_allclose(float(ct), float(cj), rtol=1e-5)
+
+
+@pytest.mark.parametrize("damping", [1e-6, 0.3])
+def test_schur_check_fails_on_a_dropped_block(damping):
+    """The planted fault for test_schur_pieces_match_jax's S: the port's
+    S without the landmark that adds the most to it (its W block zeroed)
+    fails the comparison at either damping."""
+    p, lj, lt = schur_inputs()
+    WHW = np.einsum("lfij,ljk,lgmk->lfigm", *(np.asarray(x, np.float64) for x in (
+        lj[4], invert_hll_j(lj[2], damping), lj[4])))
+    lt[4] = lt[4].clone()
+    lt[4][np.argmax(np.abs(WHW).reshape(len(WHW), -1).max(1))] = 0.0
+    with pytest.raises(AssertionError, match="^S: "):
+        assert_schur_matches_jax(lt, lj, p["fixed"], damping)
 
 
 @pytest.mark.parametrize("damping", [1e-6, 1e-2])

@@ -3,26 +3,30 @@
 One run of each, in the same environment (2 lanes, 1 latency rep, the
 synthetic fallback sequence): the JAX ``bench.main()`` in this process,
 with ``evaluate`` and ``render_sequence`` wrapped to record the
-configurations and sequences it builds, and ``python -m tpuvo_torch
---device cpu bench`` as a process of its own, started first so the two run
-side by side.  The JAX run also runs its SLAM section, with
-``run_sequence_slam`` and ``refine_trajectory_loop`` replaced by stubs that
-record their arguments and return the ground-truth poses (the JAX SLAM
-stack compiles for minutes on the CPU); the port's SLAM section is called
-in process with the same stubs, and its process runs without it, as both
+configurations and sequences it builds and its trackers replaced by the
+ground truth (``stub_jax_trackers``: compiling and running the JAX tracker
+on the CPU was most of the module's time and fed nothing compared), and
+``python -m tpuvo_torch --device cpu bench`` as a process of its own,
+started first so the two run side by side: the port's one end-to-end run
+of the subcommand on the CPU, with its real tracker.  The JAX run also
+runs its SLAM section, with ``run_sequence_slam`` and
+``refine_trajectory_loop`` replaced by stubs that record their arguments
+and return the ground-truth poses; the port's SLAM section is called in
+process with the same stubs, and its process runs without it, as both
 benches do by default on the CPU.
 
 Compared: the configurations field for field, the ``TPUVO_*`` names read,
 the fallback and SLAM sequences bit for bit, the JSON line's key set,
-``metric``, ``unit``, echoed settings and gate booleans.  Whole-run ATEs
-are not compared across the packages (per-step parity is held elsewhere;
-whole runs are held to gates): the port's ATE and ``map_count`` are held
-to the port's own ``run_sequence`` on the same inputs (1e-6, exact).
+``metric``, ``unit`` and echoed settings: what the bench's control flow
+builds, whatever its tracker returns.  Whole-run ATEs are not compared
+across the packages (per-step parity is held elsewhere; whole runs are
+held to gates): the port's ATE and ``map_count`` are held to the port's
+own ``run_sequence`` on the same inputs (1e-6, exact).
 
-The fallback walks off its world, so its gates read false in both benches.
-The gates are also compared where they can pass: both benches read the
-fallback written as a dataset, with a golden trajectory beside it, and
-their trackers replaced by the ground truth.
+The fallback walks off its world, so the port's real gates read false.
+The two benches' gate booleans are compared where they can pass and where
+they fail: both read the fallback written as a dataset, with a golden
+trajectory beside it, and their trackers replaced by the ground truth.
 """
 
 import collections
@@ -52,6 +56,7 @@ from tpuvo_torch.config import EngineConfig
 from tpuvo_torch.data import synthetic as tsyn
 from tpuvo_torch.data.writer import write_dataset
 from tpuvo_torch.engine import ba_refine as tba_refine, eval as teval, slam as tslam, vo as tvo
+import xdist_threads  # noqa: F401  (torch's share of the cores under xdist)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SLAM_KEYS = {"slam_fps", "ate_slam", "ate_refined", "slam_gate_ok", "slam_frames",
@@ -108,10 +113,51 @@ def jax_bench(env, stubs):
     return json.loads(buf.getvalue().splitlines()[-1])
 
 
+# (a shift of every row's x, a shift of one row's x, rows dropped) of the
+# golden file, and whether the gate should pass: within both thresholds,
+# beyond the mean's, beyond the max's, and a file one row short (skipped)
+GOLDEN_CASES = {"within": (0.05, 0.0, 0, True), "mean_beyond": (0.2, 0.0, 0, False),
+                "max_beyond": (0.0, 0.5, 0, False), "length_mismatch": (0.05, 0.0, 1, True)}
+State = collections.namedtuple("State", "map_count")
+Log = collections.namedtuple("Log", "pose")
+
+
 @pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    """(the JAX bench's line, what it built, the port process's stdout, its
-    environment)."""
+def gt_dataset(tmp_path_factory):
+    """The fallback sequence written as a dataset in the reference's layout,
+    and its true camera poses relative to frame 0's."""
+    cfg = EngineConfig()
+    world = tsyn.make_world(0, n_landmarks=1000)
+    seq = tsyn.render_sequence(world, tsyn.make_planar_trajectory(cfg.n_frames), cfg,
+                               pixel_noise=0.1)
+    poses = gt_poses(tsyn, seq, cfg)
+    rel = (np.linalg.inv(poses[0]) @ poses).astype(np.float32)
+    return write_dataset(str(tmp_path_factory.mktemp("gt_dataset")), seq, world, cfg), seq, rel
+
+
+def stub_jax_trackers(mp, rel):
+    """Every tracker of the JAX bench replaced by one that returns ``rel``."""
+    pose, state = jnp.asarray(rel[1:]), State(jnp.int32(7))
+    mp.setattr(jvo, "bootstrap", lambda *a: (state, jnp.zeros(())))
+    mp.setattr(jvo, "make_tracker", lambda cfg: lambda s, c, n: (s, Log(pose)))
+    mp.setattr(jvo, "full_run_jit", lambda *a: (state, Log(pose)))
+    mp.setattr(jvo, "scan_tracker",
+               lambda s, c, n, cfg: (s, Log(jnp.zeros((c.uv.shape[0], 4, 4)))))
+
+
+def stub_port_trackers(mp, rel):
+    """Every tracker of the port's bench replaced by one that returns ``rel``."""
+    pose, state = torch.as_tensor(rel[1:]), State(torch.tensor(7))
+    mp.setattr(tvo, "bootstrap", lambda *a: (state, None))
+    mp.setattr(tvo, "make_tracker", lambda cfg: lambda s, c, n: (s, Log(pose)))
+    mp.setattr(tvo, "full_run_jit", lambda *a: (state, Log(pose)))
+    mp.setattr(tvo, "run_batch", lambda *a, **kw: None)
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory, gt_dataset):
+    """(the JAX bench's line with its trackers stubbed, what it built, the
+    port process's stdout, its environment)."""
     tmp = str(tmp_path_factory.mktemp("bench"))
     env = bench_env(tmp)
     port = subprocess.Popen(
@@ -129,6 +175,7 @@ def runs(tmp_path_factory):
                    lambda *a, **kw: (rec["rendered"].append(render(*a, **kw)),
                                      rec["rendered"][-1])[1])
         stub_slam(mp, jslam, jba_refine, jsyn, rec)
+        stub_jax_trackers(mp, gt_dataset[2])
 
     try:
         jline = jax_bench(env, record)
@@ -212,13 +259,15 @@ def test_json_line_keys_equal_jax(runs):
 
 
 def test_gates_and_accuracy_match_run_sequence(runs, env):
-    """(f) The gate booleans equal the JAX bench's (both false on the
-    fallback, which walks off its world); the port's ATE and map_count are
-    those of its own run_sequence on the same sequence, config and seed."""
-    jx, px = runs[0]["extra"], port_line(runs)["extra"]
+    """(f) The port's real gates read false on the fallback, which walks off
+    its world (the two benches' gate booleans are compared by
+    test_gates_equal_jax_where_they_can_pass, true and false); the port's
+    ATE and map_count are those of its own run_sequence on the same
+    sequence, config and seed."""
+    px = port_line(runs)["extra"]
     for k in ("accuracy_gate_ok", "latency_accuracy_ok"):
-        assert px[k] is jx[k] is False
-    assert runs[0]["vs_baseline"] == port_line(runs)["vs_baseline"] == 0.0
+        assert px[k] is False
+    assert port_line(runs)["vs_baseline"] == 0.0
     cfg = tbench.configs("cpu")[0]
     seq = tbench.bench_sequence(cfg, env["TPUVO_DATA"])
     gate = tbench.accuracy_gate(seq, tvo.frames_of(seq, 0, seq.uv.shape[0], "cpu"), cfg,
@@ -228,47 +277,6 @@ def test_gates_and_accuracy_match_run_sequence(runs, env):
     assert abs(gate["acc"]["ate_rmse"] - ate) <= 1e-6
     assert int(gate["state"].map_count) == int(state.map_count) == px["map_count"]
     assert px["ate_rmse"] == round(gate["acc"]["ate_rmse"], 4)
-
-
-# (a shift of every row's x, a shift of one row's x, rows dropped) of the
-# golden file, and whether the gate should pass: within both thresholds,
-# beyond the mean's, beyond the max's, and a file one row short (skipped)
-GOLDEN_CASES = {"within": (0.05, 0.0, 0, True), "mean_beyond": (0.2, 0.0, 0, False),
-                "max_beyond": (0.0, 0.5, 0, False), "length_mismatch": (0.05, 0.0, 1, True)}
-State = collections.namedtuple("State", "map_count")
-Log = collections.namedtuple("Log", "pose")
-
-
-@pytest.fixture(scope="module")
-def gt_dataset(tmp_path_factory):
-    """The fallback sequence written as a dataset in the reference's layout,
-    and its true camera poses relative to frame 0's."""
-    cfg = EngineConfig()
-    world = tsyn.make_world(0, n_landmarks=1000)
-    seq = tsyn.render_sequence(world, tsyn.make_planar_trajectory(cfg.n_frames), cfg,
-                               pixel_noise=0.1)
-    poses = gt_poses(tsyn, seq, cfg)
-    rel = (np.linalg.inv(poses[0]) @ poses).astype(np.float32)
-    return write_dataset(str(tmp_path_factory.mktemp("gt_dataset")), seq, world, cfg), seq, rel
-
-
-def stub_jax_trackers(mp, rel):
-    """Every tracker of the JAX bench replaced by one that returns ``rel``."""
-    pose, state = jnp.asarray(rel[1:]), State(jnp.int32(7))
-    mp.setattr(jvo, "bootstrap", lambda *a: (state, jnp.zeros(())))
-    mp.setattr(jvo, "make_tracker", lambda cfg: lambda s, c, n: (s, Log(pose)))
-    mp.setattr(jvo, "full_run_jit", lambda *a: (state, Log(pose)))
-    mp.setattr(jvo, "scan_tracker",
-               lambda s, c, n, cfg: (s, Log(jnp.zeros((c.uv.shape[0], 4, 4)))))
-
-
-def stub_port_trackers(mp, rel):
-    """Every tracker of the port's bench replaced by one that returns ``rel``."""
-    pose, state = torch.as_tensor(rel[1:]), State(torch.tensor(7))
-    mp.setattr(tvo, "bootstrap", lambda *a: (state, None))
-    mp.setattr(tvo, "make_tracker", lambda cfg: lambda s, c, n: (s, Log(pose)))
-    mp.setattr(tvo, "full_run_jit", lambda *a: (state, Log(pose)))
-    mp.setattr(tvo, "run_batch", lambda *a, **kw: None)
 
 
 @pytest.mark.parametrize("case", list(GOLDEN_CASES))

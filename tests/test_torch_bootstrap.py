@@ -38,6 +38,7 @@ from tpuvo_torch.ops import twoview as ttv
 from tpuvo_torch.ops.cuda import smalleig as tc
 from tpuvo_torch.utils import graphs
 from tpuvo_torch.utils.graphs import host_sync_guard
+import xdist_threads  # noqa: F401  (torch's share of the cores under xdist)
 
 EIG_REL = 1e-5     # eigenvalues, relative to the largest
 VEC_GAP = 1e-6     # 1 - |<v, v_ref>| of a vector with a gap

@@ -3,9 +3,11 @@ executables as library calls, and ``python -m tpuvo_torch`` on a dataset
 written in the reference layout.
 
 Tolerances: run_match_test rows exact; run_pose_recovery with JAX's own
-per-pair RANSAC draws, chained poses atol 2e-3 and inlier counts exact (the
-T_boot tolerance of test_torch_vo.py: the refit's fp32 9x9 eigenvector
-differs between the libraries' eigensolvers); run_triangulate_test ids
+per-pair RANSAC draws, inlier counts exact, the first chained pose (the
+axis remap) exactly and each pair's relative pose in rotation and
+translation direction within its refit's conditioning (the refit's fp32
+9x9 eigenvector is fixed only to eps·λmax / (λ1 - λ0), within which the
+libraries' eigensolvers land apart; assert_pose_within); run_triangulate_test ids
 exact, points within 5e-2 relative and absolute (test_torch_vo.py's
 bootstrap landmarks: the T_boot difference amplified by depth); run_vo's
 path-length scale 1e-6 on the same poses.
@@ -22,6 +24,7 @@ import numpy as np
 import pytest
 import torch
 
+from test_torch_geometry import EPS, assert_pose_within, record_refits, refit_kappa
 from tpuvo.config import EngineConfig as JCfg
 from tpuvo.engine import drivers as jdrivers, state as jstate, vo as jvo
 from tpuvo.ops import match as jmatch
@@ -31,6 +34,7 @@ from tpuvo_torch.data import synthetic
 from tpuvo_torch.data.writer import write_dataset
 from tpuvo_torch.engine import drivers, eval as teval, plots, vo
 from tpuvo_torch.engine.state import state_from_numpy, state_to_numpy
+import xdist_threads  # noqa: F401  (torch's share of the cores under xdist)
 
 FRAMES = 12
 RUN_FILES = ("estimated_trajectory.txt", "estimated_trajectory_scaled.txt", "errors.txt",
@@ -73,16 +77,50 @@ def test_run_match_test_rows_equal_jax(fixture):
     assert all(type(r) is drivers.MatchTestRow for r in rows_t)
 
 
-def test_run_pose_recovery_with_jax_draws(fixture):
+@pytest.fixture(scope="module")
+def pose_recovery(fixture):
+    """Both packages' run_pose_recovery with JAX's draws: (port poses,
+    inliers, JAX poses, inliers, each pair's refit_kappa)."""
     seq, _, _ = fixture
     jc, tc = JCfg(), EngineConfig()
     pj, inl_j = jdrivers.run_pose_recovery(seq, jc, seed=42)
     keys = jax.random.split(jax.random.PRNGKey(42), FRAMES - 1)
-    pt, inl_t = drivers.run_pose_recovery(seq, tc, seed=42, device="cpu",
-                                          sample_idx=jax_draws(keys, seq, jc, pairs=True))
+    with pytest.MonkeyPatch.context() as mp:
+        refits = record_refits(mp)
+        pt, inl_t = drivers.run_pose_recovery(seq, tc, seed=42, device="cpu",
+                                              sample_idx=jax_draws(keys, seq, jc, pairs=True))
+    (refit,) = refits
+    return pt, inl_t, np.asarray(pj), inl_j, refit_kappa(*refit)
+
+
+def assert_chains_agree(pt, pj, kappa):
+    """The chained poses pose_0 = M (the axis remap), pose_k+1 = pose_k T_k:
+    pose_0 exactly, and each pair's T_k = pose_k⁻¹ pose_k+1 (float64) by
+    assert_pose_within, its bound widened by the chain's own float32
+    rounding (4 eps a product)."""
+    assert np.array_equal(pt[0], pj[0])
+    rel = lambda p: np.linalg.inv(p[:-1].astype(np.float64)) @ p[1:].astype(np.float64)
+    chain = 4 * EPS * np.arange(1, len(pt))
+    assert_pose_within(rel(pt), rel(pj), kappa + chain, "pairs")
+
+
+def test_run_pose_recovery_with_jax_draws(pose_recovery):
+    pt, inl_t, pj, inl_j, kappa = pose_recovery
     assert inl_t == inl_j
     assert pt.shape == (FRAMES, 4, 4) and pt.dtype == np.float32
-    np.testing.assert_allclose(pt, pj, atol=2e-3)
+    assert_chains_agree(pt, pj, kappa)
+
+
+def test_run_pose_recovery_check_fails_on_a_reversed_translation(pose_recovery):
+    """The planted fault for test_run_pose_recovery_with_jax_draws: the
+    port's chain with one pair's translation reversed (its pose moved back
+    by twice that pair's step) fails the comparison."""
+    pt, _, pj, _, kappa = pose_recovery
+    bad = pt.astype(np.float64)
+    step = bad[5, :3, 3] - bad[4, :3, 3]
+    bad[5:, :3, 3] -= 2 * step
+    with pytest.raises(AssertionError, match="pairs"):
+        assert_chains_agree(bad.astype(np.float32), pj, kappa)
 
 
 def test_run_triangulate_test_with_jax_draw(fixture):

@@ -1,9 +1,12 @@
 """tpuvo_torch triangulation and two-view geometry vs tpuvo's (CPU).
 
 RANSAC takes JAX's own hypothesis draw (``sample_idx``), since the two
-packages' generators differ.  E itself is not compared — SVD/eigh sign
-conventions differ between the libraries (E is defined up to sign) — but
-the inlier masks, the recovered relative pose and the bootstrap pose are.
+packages' generators differ.  E itself is not compared entry by entry: it
+is the smallest eigenvector of the 8-point normal matrix AᵀA, which
+float32 fixes only to ~eps·λmax / (λ1 - λ0), and the eigensolvers (and
+the host's BLAS) land apart within that; each E is held instead to the
+epipolar geometry of its correspondences (``assert_epipolar``), and poses
+derived from it to that conditioning (``assert_pose_within``).
 Points: 1e-3 (relative for the DLT, absolute after triangulate_two_view)
 on 4-12 m depths over a 0.5 m baseline, where fp32 rounding in the 3x3
 solves is amplified ~1e3x.
@@ -20,13 +23,81 @@ from tpuvo.data import synthetic
 from tpuvo.ops import lie as jlie, triangulate as jtri, twoview as jtv
 from tpuvo_torch.config import RansacConfig
 from tpuvo_torch.ops import triangulate as ttri, twoview as ttv
+import xdist_threads  # noqa: F401  (torch's share of the cores under xdist)
 
 CFG = JEngineConfig()
 K = CFG.K()
+EPS = float(np.finfo(np.float32).eps)
 
 
 def t(x):
     return torch.as_tensor(np.array(x))
+
+
+def normal_spectrum(x1, x2, w=None):
+    """Eigenvalues (ascending, float64) of the 8-point normal matrix AᵀA of
+    normalized correspondences (..., N, 2), each row weighted by w."""
+    A = ttv._epipolar_rows(torch.as_tensor(np.asarray(x1), dtype=torch.float64),
+                           torch.as_tensor(np.asarray(x2), dtype=torch.float64))
+    if w is not None:
+        A = A * torch.as_tensor(np.asarray(w), dtype=torch.float64)[..., None]
+    return torch.linalg.eigvalsh(A.mT @ A).numpy(), A.numpy()
+
+
+def refit_kappa(x1, x2, w=None):
+    """eps·λmax / (λ1 - λ0) of the 8-point normal matrix: to first order,
+    the angle by which a float32 perturbation of AᵀA of eps·‖AᵀA‖ turns
+    its null vector, and so E and the pose taken from it."""
+    lam, _ = normal_spectrum(x1, x2, w)
+    return EPS * lam[..., -1] / (lam[..., 1] - lam[..., 0])
+
+
+def record_refits(mp):
+    """Every 8-point refit's (x1, x2, weights) as ``twoview.essential_8pt``
+    receives them, appended to the returned list (mp: a MonkeyPatch)."""
+    calls, fit = [], ttv.essential_8pt
+    mp.setattr(ttv, "essential_8pt", lambda x1, x2, weights=None: (
+        calls.append((x1, x2, weights)), fit(x1, x2, weights))[1])
+    return calls
+
+
+def assert_epipolar(E, x1, x2):
+    """E (3, 3) holds the epipolar geometry of x1, x2 as far as float32
+    determines it.  Its singular values are (1, 1, 0) to 16 eps (two 3x3
+    products of orthogonal float32 factors).  Its algebraic residual
+    ‖A vec(E)‖ / ‖E‖ is at most sqrt(λ0) + 2·eps·λmax / sqrt(λ1 - λ0): a
+    perturbation ΔM of AᵀA turns the null vector toward the others by
+    ΔM / (λi - λ0) each, which raise the residual by ‖ΔM‖ / sqrt(λ1 - λ0)
+    together, and ‖ΔM‖ <= eps·λmax for forming AᵀA in float32 and again
+    for the eigensolver.  Well posed at any gap, unlike E's entries."""
+    E = np.asarray(E, np.float64)
+    np.testing.assert_allclose(np.linalg.svd(E, compute_uv=False), [1.0, 1.0, 0.0],
+                               rtol=0, atol=16 * EPS)
+    lam, A = normal_spectrum(x1, x2)
+    bound = np.sqrt(max(lam[0], 0.0)) + 2 * EPS * lam[-1] / np.sqrt(lam[1] - lam[0])
+    residual = np.linalg.norm(A @ E.reshape(9)) / np.linalg.norm(E)
+    assert residual <= bound, (residual, bound)
+
+
+def pose_angles(Ta, Tb):
+    """(rotation angle, angle between the translations) of 4x4 poses
+    (..., 4, 4), each accurate at small angles (chords, not arccos)."""
+    Ta, Tb = np.asarray(Ta, np.float64), np.asarray(Tb, np.float64)
+    angle = lambda chord: 2 * np.arcsin(np.minimum(chord, 1.0))
+    unit = lambda v: v / np.linalg.norm(v, axis=-1, keepdims=True)
+    rot = np.linalg.norm(Ta[..., :3, :3] - Tb[..., :3, :3], axis=(-2, -1)) / (2 * np.sqrt(2))
+    return angle(rot), angle(np.linalg.norm(unit(Ta[..., :3, 3]) - unit(Tb[..., :3, 3]),
+                                            axis=-1) / 2)
+
+
+def assert_pose_within(Ta, Tb, kappa, what=""):
+    """Two float32 poses taken from the same 8-point refit, each within
+    ``kappa`` (``refit_kappa``) of the exact one to first order: their
+    rotations and their translations' directions (sign included) agree
+    within 2·kappa.  A translation's length is not compared."""
+    rot, direction = pose_angles(Ta, Tb)
+    assert np.all(rot <= 2 * kappa), (what, rot, kappa)
+    assert np.all(direction <= 2 * kappa), (what, direction, kappa)
 
 
 def two_view(seed=0, n=100, noise=0.0, outliers=0):
@@ -96,11 +167,26 @@ def test_triangulate_normalized_and_sampson():
     E = np.asarray(jlie.skew(jnp.asarray(tr))) @ R
     np.testing.assert_allclose(ttv.sampson_error(t(E), x1t, x2t).numpy(),
                                np.asarray(jtv.sampson_error(jnp.asarray(E), x1j, x2j)), atol=1e-9)
-    # the 8-point E: up to sign, the same epipolar geometry
-    Et = ttv.essential_8pt(x1t, x2t).numpy()
-    Ej = np.asarray(jtv.essential_8pt(x1j, x2j))
-    sgn = np.sign(np.sum(Et * Ej))
-    np.testing.assert_allclose(sgn * Et, Ej, atol=1e-3)
+    # the 8-point E: both hold the epipolar geometry of the noise-free
+    # correspondences (assert_epipolar), which its entries need not show
+    assert_epipolar(ttv.essential_8pt(x1t, x2t).numpy(), x1t, x2t)
+    assert_epipolar(np.asarray(jtv.essential_8pt(x1j, x2j)), x1t, x2t)
+
+
+def test_essential_8pt_check_fails_on_a_perturbed_E():
+    """The planted fault for test_triangulate_normalized_and_sampson's E:
+    the port's E with one entry moved by 3e-3 of its norm and projected
+    back to singular values (1, 1, 0), which moves its entries by up to
+    2.2e-3 (past twice the 1e-3 they were once held to), fails
+    assert_epipolar on its residual."""
+    _, _, _, uv1, uv2 = two_view(seed=2)
+    x1t, x2t = ttv.normalize_points(t(uv1), t(K)), ttv.normalize_points(t(uv2), t(K))
+    E = ttv.essential_8pt(x1t, x2t).numpy().astype(np.float64)
+    E[2, 2] += 3e-3 * np.linalg.norm(E)
+    U, _, Vt = np.linalg.svd(E)
+    E = U @ np.diag([1.0, 1.0, 0.0]) @ Vt
+    with pytest.raises(AssertionError):
+        assert_epipolar(E, x1t, x2t)
 
 
 def jax_sample_idx(key, valid, cfg):

@@ -40,6 +40,7 @@ from tpuvo_torch.ops import lie as tlie
 from tpuvo_torch.ops.cuda import match_kernel as tm, picp_kernel as tk, smalleig as tc
 from tpuvo_torch.utils import graphs
 from tpuvo_torch.utils.graphs import GraphCaptureError, host_sync_guard
+import xdist_threads  # noqa: F401  (torch's share of the cores under xdist)
 
 F = 10
 CFG = EngineConfig(mode="fixed", map_capacity=256, max_obs=64,

@@ -18,6 +18,7 @@ from tpuvo.data import loader as jloader, native as jnative, synthetic as jsynth
 from tpuvo_torch.config import EngineConfig
 from tpuvo_torch.data import loader, native, synthetic
 from tpuvo_torch.data.writer import differing_fields, write_camera, write_dataset
+import xdist_threads  # noqa: F401  (torch's share of the cores under xdist)
 
 FRAMES = 8
 

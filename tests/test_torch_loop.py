@@ -29,6 +29,7 @@ from tpuvo_torch.config import BAConfig, EngineConfig
 from tpuvo_torch.engine import ba_refine as tref
 from tpuvo_torch.engine.state import state_from_numpy
 from tpuvo_torch.ops import lie as tlie, pnp as tpnp
+import xdist_threads  # noqa: F401  (torch's share of the cores under xdist)
 
 CFG = JCfg()
 KN = CFG.K()

@@ -15,6 +15,7 @@ from tpuvo.ops import match as jm
 from tpuvo.ops.pallas.match_kernel import match_descriptors_pallas
 from tpuvo_torch.ops import match as tm
 from tpuvo_torch.ops.cuda import match_kernel as tk
+import xdist_threads  # noqa: F401  (torch's share of the cores under xdist)
 
 ATOL = 1e-5
 

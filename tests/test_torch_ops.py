@@ -22,6 +22,7 @@ from tpuvo.data import synthetic as jsyn
 from tpuvo.ops import camera as jcam, lie as jlie, linalg_small as jla
 from tpuvo_torch.data import synthetic as tsyn
 from tpuvo_torch.ops import camera as tcam, lie as tlie, linalg_small as tla
+import xdist_threads  # noqa: F401  (torch's share of the cores under xdist)
 
 RTOL, ATOL = 1e-5, 1e-6
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))

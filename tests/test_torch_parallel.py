@@ -51,6 +51,7 @@ from tpuvo_torch.parallel.ba_sharded import (gather_points, shard_ba_problem,
                                              sharded_ba_solve, sharded_ba_step)
 from tpuvo_torch.parallel.match_sharded import sharded_match_descriptors
 from tpuvo_torch.parallel.posegraph_sharded import shard_edges, sharded_pgo_solve
+import xdist_threads  # noqa: F401  (torch's share of the cores under xdist)
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from test_ba import make_ba_problem  # noqa: E402

@@ -24,6 +24,7 @@ from tpuvo.ops.pallas.picp_kernel import solve_pallas
 from tpuvo_torch.config import PICPConfig
 from tpuvo_torch.ops import picp as tpicp
 from tpuvo_torch.ops.cuda import picp_kernel as tk
+import xdist_threads  # noqa: F401  (torch's share of the cores under xdist)
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from test_picp import make_problem as _make_problem  # noqa: E402

@@ -26,6 +26,7 @@ from tpuvo_torch.config import BAConfig
 from tpuvo_torch.engine import ba_refine, slam, vo
 from vobench import check, gen, manifest, program
 from vobench.reference import refine as ref
+import xdist_threads  # noqa: F401  (torch's share of the cores under xdist)
 
 F, N, CAP = 60, 128, 1024
 

@@ -23,6 +23,7 @@ import torch
 
 from tpuvo_torch.ba import assembly
 from tpuvo_torch.ops.cuda import segsum
+import xdist_threads  # noqa: F401  (torch's share of the cores under xdist)
 
 ROOT = Path(__file__).resolve().parents[1]
 SHAPES = [(3, 3), (3,), (6, 3), (6, 6), (6,)]

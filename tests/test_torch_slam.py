@@ -25,6 +25,7 @@ from tpuvo.engine import slam as jslam, vo as jvo
 from tpuvo_torch.config import EngineConfig, MatcherConfig, PICPConfig
 from tpuvo_torch.engine import slam as tslam, state as tstate, vo as tvo
 from tpuvo_torch.ops import lie as tlie
+import xdist_threads  # noqa: F401  (torch's share of the cores under xdist)
 
 F = 24
 COUNTS = ("num_inliers", "n_map_matches", "n_frame_matches", "n_new_points", "map_count")

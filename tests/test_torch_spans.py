@@ -17,6 +17,7 @@ import torch
 from test_torch_graphs import CFG, SLAM_CFG, fake, kernels, lanes, make_seq  # noqa: F401
 from tpuvo_torch.engine import slam as tslam, vo as tvo
 from tpuvo_torch.utils import graphs, profiling
+import xdist_threads  # noqa: F401  (torch's share of the cores under xdist)
 
 F = 6
 

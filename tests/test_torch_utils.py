@@ -27,6 +27,7 @@ from tpuvo_torch.data import synthetic
 from tpuvo_torch.engine import eval as teval, plots, vo
 from tpuvo_torch.engine.state import FrameLog, VOState, state_from_numpy, state_to_numpy
 from tpuvo_torch.utils import checkpoint, checks, faults, metrics, profiling
+import xdist_threads  # noqa: F401  (torch's share of the cores under xdist)
 
 KW = dict(mode="fixed", map_capacity=256, max_obs=64)
 

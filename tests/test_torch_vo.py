@@ -23,6 +23,7 @@ from tpuvo.ops import match as jmatch
 from tpuvo_torch.config import EngineConfig, MatcherConfig, PICPConfig
 from tpuvo_torch.engine import state as tstate, vo as tvo
 from tpuvo_torch.engine.eval import evaluate, metrics_dict
+import xdist_threads  # noqa: F401  (torch's share of the cores under xdist)
 
 LOG_COUNTS = ("num_inliers", "n_map_matches", "n_map_correct", "n_frame_matches",
               "n_new_points", "map_count", "n_dropped_candidates", "n_dropped_overflow")
