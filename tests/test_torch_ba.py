@@ -18,8 +18,10 @@ from tpuvo.ba import window as jw
 from tpuvo.config import BAConfig as JBA, EngineConfig as JCfg
 from tpuvo.data import synthetic
 from tpuvo.ops import lie as jlie
-from tpuvo_torch.ba import window as tw
+from tpuvo_torch.ba import assembly, window as tw
 from tpuvo_torch.config import BAConfig, EngineConfig
+from tpuvo_torch.ops import lie as tl
+from tpuvo_torch.ops.cuda import schur
 from tpuvo_torch.ops.linalg_small import cholesky_solve_nan
 import xdist_threads  # noqa: F401  (torch's share of the cores under xdist)
 
@@ -335,3 +337,166 @@ def test_problem_converters_round_trip():
     for k, v in p.items():
         assert np.array_equal(back[k], v), k
     assert tp.obs_lm.dtype == torch.int64
+
+
+# ------------------------------------------------- the sparse reduction --
+def sparse_inputs(damping):
+    """make_problem's linearization with the dense plans and with a
+    ``PairPlan``: (dense parts, pair blocks, the plan, Hll⁻¹)."""
+    tp = tw.problem_from_numpy(make_problem(), "cpu")
+    by_lm, by_lm_frame = tw.assembly_plans(tp)
+    lm, _, valid = tw._gather_obs(tp)
+    (W, _), L = tp.obs_lm.shape, tp.points.shape[0]
+    pairs = tw.pair_plan(lm.reshape(-1), valid.reshape(-1), W, L)
+    dense = tw.linearize_ba(tp, KT, *WH, BAConfig(), (by_lm, by_lm_frame))
+    Wp = tw.linearize_ba(tp, KT, *WH, BAConfig(), (by_lm, pairs))[4]
+    return dense[:5], Wp, pairs, tw.invert_hll(dense[2], damping)
+
+
+def sums_bound(n, *magnitudes):
+    """The bound 2·eps·n·Σ|terms| on the difference of two float32
+    evaluations of sums of at most n rounded terms each, ``magnitudes``
+    the float64 |terms| summed into each entry."""
+    return 2 * EPS * n * sum(magnitudes)
+
+
+def assert_sparse_matches_dense(dense, Wp, pairs, Hinv, damping):
+    """schur_parts_sparse's S and b_red, and the pair blocks' landmark
+    steps, against the dense path on the same inputs, entry by entry."""
+    Hpp, bp, Hll, bl, Wfl = dense
+    S, b, _ = tw.schur_parts(Hpp, bp, Hll, bl, Wfl, damping)
+    S2, b2, Hinv2 = tw.schur_parts_sparse(Hpp, bp, Hll, bl, Wp, pairs, damping)
+    assert torch.equal(Hinv2, Hinv)
+    assert_within(S2, S, schur_bound(Hpp, Wfl, Hinv, Hinv), "S")
+    aW, aH, abl, L = (np.abs(np.asarray(x, np.float64)) for x in (Wfl, Hinv, bl, Wfl.shape[0]))
+    b_terms = np.einsum("lfij,ljk,lk->fi", aW, aH, abl).reshape(-1)
+    assert_within(b2, b, sums_bound(3 * L + 4, b_terms, np.abs(np.asarray(bp)).reshape(-1)),
+                  "b_red")
+    dx = torch.as_tensor(np.random.default_rng(0).normal(0, 1e-2, (Hpp.shape[0], 6)), dtype=torch.float32)
+    rhs = abl + np.einsum("lfij,fi->lj", aW, np.abs(dx.numpy()))
+    assert_within(schur.backsubstitute(Wp, Hinv, bl, dx, pairs.frame, pairs.lm_bounds),
+                  tw.backsubstitute(Hinv, bl, Wfl, dx),
+                  sums_bound(6 * Hpp.shape[0] + 4, np.einsum("lij,lj->li", aH, rhs)), "dx_l")
+
+
+@pytest.mark.parametrize("damping", [1e-6, 0.3])
+def test_sparse_schur_matches_dense(damping):
+    """The pair blocks are the dense grid's nonzero blocks bit for bit (the
+    same entries summed in the same order; an invalid observation's are
+    zero), and the reduced system and landmark steps built from them agree
+    with the dense path's within their sums' rounding, at either damping."""
+    dense, Wp, pairs, Hinv = sparse_inputs(damping)
+    Wfl = dense[4]
+    n = int(pairs.lm_bounds[-1])
+    grid = torch.zeros_like(Wfl)
+    grid[pairs.lm[:n], pairs.frame[:n]] = Wp[:n]
+    assert torch.equal(grid, Wfl) and not Wp[n:].any()
+    assert_sparse_matches_dense(dense, Wp, pairs, Hinv, damping)
+
+
+@pytest.mark.parametrize("damping", [1e-6, 0.3])
+@pytest.mark.parametrize("fault", ["wrong frame", "dropped"])
+def test_sparse_check_fails_on_a_misplaced_block(fault, damping):
+    """The planted faults for test_sparse_schur_matches_dense: the pair
+    that adds the most to S given to a frame that does not see its
+    landmark, or dropped (its block zeroed), fails the comparison."""
+    dense, Wp, pairs, Hinv = sparse_inputs(damping)
+    n = int(pairs.lm_bounds[-1])
+    Y = torch.einsum("pij,pjk->pik", Wp[:n], Hinv[pairs.lm[:n]])
+    k = int(torch.einsum("pik,pjk->pij", Y, Wp[:n]).abs().flatten(1).max(1).values.argmax())
+    if fault == "dropped":
+        Wp = Wp.clone()
+        Wp[k] = 0.0
+    else:
+        l, W = int(pairs.lm[k]), dense[0].shape[0]
+        seen = set(pairs.frame[pairs.lm_bounds[l]:pairs.lm_bounds[l + 1]].tolist())
+        frame = pairs.frame.clone()
+        frame[k] = next(f for f in range(W) if f not in seen)
+        pairs = pairs._replace(frame=frame, by_frame=assembly.plan(frame, W))
+    with pytest.raises(AssertionError, match="^S: "):
+        assert_sparse_matches_dense(dense, Wp, pairs, Hinv, damping)
+
+
+def random_problem(W, N, L, seed=0):
+    """A BAProblem of W frames x N observations over L landmarks, 70% of
+    the observations valid, for the plans (no geometry)."""
+    g = torch.Generator().manual_seed(seed)
+    return tw.BAProblem(
+        poses=torch.eye(4).expand(W, 4, 4).clone(), points=torch.zeros(L, 3),
+        obs_uv=torch.zeros(W, N, 2), obs_lm=torch.randint(0, L, (W, N), generator=g),
+        obs_valid=torch.rand(W, N, generator=g) < 0.7, point_valid=torch.ones(L, dtype=torch.bool),
+        fixed=torch.arange(W) < 2)
+
+
+@pytest.mark.parametrize("shape,sparse", [((16, 432, 512), False), ((200, 400, 8192), True)],
+                         ids=["local BA", "global sweep"])
+def test_the_shape_picks_the_reduction(shape, sparse):
+    """The rule 8·N <= La picks the dense product at the local BA's shape
+    (W 16, N 432, compacted to 512 landmarks: up to 84% of the blocks
+    nonzero) and the pair blocks at the global sweep's (W 200, N 400,
+    8,192 landmarks: 4.9%); a pair plan holds each (landmark, frame) of a
+    valid observation once, in ascending order, each landmark's pairs
+    within its bounds and each frame's in ascending landmark."""
+    W, N, L = shape
+    assert tw.sparse_schur(N, L) == sparse
+    prob = random_problem(W, N, L)
+    plans = tw.assembly_plans(prob)
+    assert isinstance(plans[1], tw.PairPlan if sparse else tw.CouplingGrid)
+    assert plans[1].sparse == sparse
+    if not sparse:
+        return
+    pairs = plans[1]
+    valid = prob.obs_valid.reshape(-1)
+    lm, f = prob.obs_lm.reshape(-1)[valid], torch.arange(W).repeat_interleave(N)[valid]
+    keys = torch.unique(lm * W + f)
+    n = keys.numel()
+    assert pairs.lm.shape == (W * N,) and int(pairs.lm_bounds[-1]) == n
+    assert torch.equal(pairs.lm[:n] * W + pairs.frame[:n], keys)
+    assert (pairs.lm[n:] == L).all() and (pairs.frame[n:] == W).all()
+    assert torch.equal(pairs.lm_bounds, torch.searchsorted(pairs.lm, torch.arange(L + 1)))
+    by_f = pairs.by_frame.order[:n]
+    assert torch.equal(pairs.frame[by_f], torch.sort(pairs.frame[:n]).values)
+    assert torch.equal(pairs.by_frame.bounds, torch.searchsorted(pairs.frame[by_f], torch.arange(W + 1)))
+    key = pairs.frame[by_f] * L + pairs.lm[by_f]
+    assert (key[1:] > key[:-1]).all()
+
+
+def test_ba_step_at_the_local_ba_shape_is_the_dense_path():
+    """At the local BA's shape (16 frames of 432 observation slots over 512
+    landmarks) ``ba_step`` is the dense path written out, bit for bit."""
+    p = make_problem(W=16, L=512)
+    pad = 432 - p["obs_lm"].shape[1]
+    for k in ("obs_uv", "obs_lm", "obs_valid"):
+        p[k] = np.concatenate([p[k], np.zeros((16, pad, *p[k].shape[2:]), p[k].dtype)], 1)
+    tp = tw.problem_from_numpy(p, "cpu")
+    plans = tw.assembly_plans(tp)
+    assert tp.obs_lm.shape == (16, 432) and not plans[1].sparse
+    got, stats = tw.ba_step(tp, KT, *WH, BAConfig(), 1e-3, plans=plans)
+    Hpp, bp, Hll, bl, Wfl, ref_stats = tw.linearize_ba(tp, KT, *WH, BAConfig(), plans)
+    S, b, Hinv = tw.schur_parts(Hpp, bp, Hll, bl, Wfl, 1e-3)
+    S, b = tw.finalize_reduced(S, b, tp.fixed, 1e-3)
+    dx = cholesky_solve_nan(S, -b).reshape(-1, 6)
+    poses = torch.where(tp.fixed[:, None, None], tp.poses, tl.se3_exp(dx) @ tp.poses)
+    upd = tp.point_valid & (Hll[:, 0, 0] + Hll[:, 1, 1] + Hll[:, 2, 2] > 0)
+    points = torch.where(upd[:, None], tp.points + tw.backsubstitute(Hinv, bl, Wfl, dx), tp.points)
+    assert torch.equal(got.poses, poses) and torch.equal(got.points, points)
+    assert all(torch.equal(a, b) for a, b in zip(stats, ref_stats))
+
+
+@pytest.mark.parametrize("name,compact", [("lm-sort", True), ("refine", False)])
+def test_sparse_ba_solve_matches_jax(name, compact):
+    """A solve that takes the pair blocks (8 frames of 128 observations
+    over 1,100 landmarks, or 1,025 compacted) against JAX's dense one, at
+    the dense solves' tolerances."""
+    p = make_problem(L=1100)
+    jp, tp = both(p)
+    La = min(1100, 8 * 128 + 1) if compact else 1100
+    assert tw.sparse_schur(tp.obs_lm.shape[1], La)
+    kw = SOLVE_CFGS[name]
+    rj, sj = ba_solve_j(jp, KJ, *WH, JBA(**kw), compact=compact)
+    rt, st = tw.ba_solve(tp, KT, *WH, BAConfig(**kw), compact=compact)
+    np.testing.assert_allclose(rt.poses.numpy(), np.asarray(rj.poses), atol=1e-5)
+    np.testing.assert_allclose(rt.points.numpy(), np.asarray(rj.points), atol=1e-3)
+    assert int(st.num_inliers) == int(sj.num_inliers)
+    assert int(st.num_obs) == int(sj.num_obs)
+    np.testing.assert_allclose(float(st.chi), float(sj.chi), rtol=1e-4)

@@ -15,6 +15,10 @@ Kernel C (the bootstrap's eigensolvers) against its plain version:
 eigenvalues and singular values within 1e-5 of the largest, vectors of
 separated values (gaps >= 0.375 against a largest of 10) within 1e-4,
 a repeated eigenvalue's space by its projector within 1e-5.
+Kernel F (the reduced camera system from the pair blocks) against its plain
+version: each entry within 2·eps·n·Σ|terms| of its sums (n the longest chain
+of additions), the same bits twice and in a graph; the refine's sweep steps
+through it against the dense path within the refine check's limits.
 """
 
 import numpy as np
@@ -1188,3 +1192,236 @@ def test_close_loops_on_card_replays_its_pgo(dev, monkeypatch):
         assert_bits(got, ref)
         assert_bits(rec_g, rec_e)
     graphs.clear()
+
+
+# ------------------------------------------------------------- kernel F --
+def pair_case(W, N, L, seed=0, everywhere=False):
+    """Random pair blocks of W frames x N observation slots over L
+    landmarks (70% valid; ``everywhere``: landmark 0 seen by every frame)
+    and the arguments of ``schur.reduced_system`` around them, on the CPU;
+    with a pose step dx (W, 6)."""
+    from tpuvo_torch.ba.window import pair_plan
+
+    g = torch.Generator().manual_seed(seed)
+    lm = torch.randint(0, L, (W, N), generator=g)
+    valid = torch.rand(W, N, generator=g) < 0.7
+    if everywhere:
+        lm[:, 0], valid[:, 0] = 0, True
+    p = pair_plan(lm.reshape(-1), valid.reshape(-1), W, L)
+    Wp = torch.randn(W * N, 6, 3, generator=g)
+    Wp[int(p.lm_bounds[-1]):] = 0.0
+    A = torch.randn(L, 3, 3, generator=g)
+    B = torch.randn(W, 6, 6, generator=g)
+    args = (Wp, A @ A.mT / 3, torch.randn(L, 3, generator=g), B @ B.mT + 50 * torch.eye(6),
+            torch.randn(W, 6, generator=g), p.lm, p.frame, p.lm_bounds, p.by_frame.order,
+            p.by_frame.bounds)
+    return args, 0.01 * torch.randn(W, 6, generator=g)
+
+
+def kernel_f_bounds(args, dx):
+    """Bounds on the kernel's difference from the plain version, entry by
+    entry: 2·eps·n·Σ|terms| (float64, from the plain version on |inputs|),
+    n the longest chain of rounded additions into an entry."""
+    from tpuvo_torch.ops.cuda import schur
+
+    Wp, Hinv, bl, Hpp, bp = (x.abs().double() for x in args[:5])
+    S, b = schur.reduced_system_reference(Wp, Hinv, bl, 0 * Hpp, 0 * bp, *args[5:])
+    W, N = Hpp.shape[0], Wp.shape[0] // Hpp.shape[0]
+    eye = torch.eye(W, dtype=torch.float64)
+    mag_S = -S + torch.einsum("fij,fg->figj", Hpp, eye).reshape(6 * W, 6 * W)
+    mag_b = -b + bp.reshape(-1)
+    mag_x = -schur.backsubstitute_reference(Wp, Hinv, bl, dx.abs().double(), args[6], args[7])
+    eps = 2 * float(torch.finfo(torch.float32).eps)
+    return eps * (N + 4) * mag_S, eps * (N + 4) * mag_b, eps * (6 * W + 4) * mag_x
+
+
+@pytest.mark.parametrize("case", ["global sweep", "span split", "chunk cut", "tiny"])
+def test_kernel_f_matches_its_plain_version(dev, case):
+    """Kernel F's reduced system and landmark steps against the plain
+    version on the CPU, entry by entry within their sums' rounding: the
+    sweep's shape (200 frames x 400 over 8,192 landmarks), 300 frames (two
+    row panels a frame, partners found by binary search) with a landmark
+    every frame sees, a chunk cut short by its partners (64 x 64 over 128
+    landmarks) and a tiny system; one launch each."""
+    from tpuvo_torch.ops.cuda import schur
+
+    W, N, L, everywhere = {"global sweep": (200, 400, 8192, False),
+                           "span split": (300, 64, 4096, True),
+                           "chunk cut": (64, 64, 128, False), "tiny": (3, 5, 40, True)}[case]
+    args, dx = pair_case(W, N, L, everywhere=everywhere)
+    on = [x.to(dev) for x in args]
+    n0 = schur.launches
+    S, b = schur.reduced_system(*on)
+    x = schur.backsubstitute(on[0], on[1], on[2], dx.to(dev), on[6], on[7])
+    torch.cuda.synchronize()
+    assert schur.launches == n0 + 2
+    S_ref, b_ref = schur.reduced_system_reference(*args)
+    x_ref = schur.backsubstitute_reference(args[0], args[1], args[2], dx, args[6], args[7])
+    for got, ref, bound, what in zip((S, b, x), (S_ref, b_ref, x_ref),
+                                     kernel_f_bounds(args, dx), ("S", "b", "dx_l")):
+        d = (got.cpu().double() - ref.double()).abs()
+        assert bool(torch.isfinite(got).all()), what
+        assert bool((d <= bound + 1e-30).all()), f"{what}: {float((d / bound).max()):.3g} x its bound"
+
+
+def test_kernel_f_gives_the_same_bits_twice_and_in_a_graph(dev):
+    """Two runs of kernel F at the sweep's shape, and a replay of the two
+    launches captured in a graph, give the same bits."""
+    from tpuvo_torch.ops.cuda import schur
+
+    args, dx = pair_case(200, 400, 8192, seed=1)
+    on = [x.to(dev) for x in args]
+    dx = dx.to(dev)
+    run = lambda: (*schur.reduced_system(*on), schur.backsubstitute(on[0], on[1], on[2], dx,
+                                                                     on[6], on[7]))
+    first, second = run(), run()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = run()
+    for t in out:
+        t.fill_(7.0)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(out, first))
+
+
+@pytest.fixture(scope="module")
+def refine_record():
+    """One refine of the refine cell's configuration on the card (one
+    tracked sequence), with its record: (``vobench.drivers.refine.Refine``, record)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import json
+    from pathlib import Path
+
+    from vobench.drivers import refine
+
+    root = Path(__file__).resolve().parents[1]
+    config = json.loads((root / "vobench" / "configs" / "kitti_loop200_refine.json").read_text())
+    traffic = dict(sequences=1, lane_noise_px=0.1)
+    r = refine.Refine(config, traffic, 2147500001, "cuda")
+    record = {}
+    r.unit(0, record=record)
+    return r, record
+
+
+def sweep_steps(r, record, sparse: bool):
+    """Each LM iteration's trial step of the refine's first two sweeps from
+    the program's own iterate, through the pair blocks or the dense grid:
+    [(kind, iterate, stepped problem)]."""
+    from tpuvo_torch.ba import assembly, window
+    from tpuvo_torch.engine import vo
+
+    K = vo._K(r.cfg, "cuda")
+    thr = r.ba.huber_threshold
+    out = []
+    for s in record["sweeps"][:2]:
+        coarse = s["kind"] == "coarse"
+        cfg = (r.ba.replace(keep_outliers=True, cull_bounds=False, huber_threshold=max(thr, 1e8))
+               if coarse else r.ba.replace(cull_bounds=False))
+        sv = s["solve"]
+        its = sv["iterations"]
+        base = window.BAProblem(its[0]["poses"], its[0]["points"], r.seqs[0].uv, sv["obs_lm"],
+                                record["obs_valid"], sv["point_valid"], sv["fixed"])
+        plans = window.assembly_plans(base)
+        assert isinstance(plans[1], window.PairPlan)
+        if not sparse:
+            W, N = base.obs_lm.shape
+            lm = window._gather_obs(base)[0].reshape(-1)
+            f = torch.arange(W, device="cuda").repeat_interleave(N)
+            plans = (plans[0], assembly.plan(lm * W + f, base.points.shape[0] * W,
+                                             order=plans[0].order))
+        for a in its[:-1]:
+            prob = base._replace(poses=a["poses"], points=a["points"])
+            out.append((s["kind"], a, window.ba_step(prob, K, r.cfg.width, r.cfg.height, cfg,
+                                                     a["lam"], plans=plans)[0]))
+    return out
+
+
+def test_refine_sweep_steps_match_the_dense_path(refine_record):
+    """The refine cell's first two sweeps, each LM iteration stepped from
+    the program's iterate through the pair blocks and through the dense
+    grid: the coarse steps' pose gap and the fine steps' point gap at the
+    median within the refine check's limits (``coarse_step_pose_gap_p50``,
+    ``fine_step_point_gap_p50``)."""
+    from vobench import check
+    from vobench.drivers.refine import _point_gap
+
+    r, record = refine_record
+    assert [s["kind"] for s in record["sweeps"][:2]] == ["coarse", "fine"]
+    sparse, dense = sweep_steps(r, record, True), sweep_steps(r, record, False)
+    gaps = {"coarse": [], "fine": []}
+    for (kind, a, s), (_, _, d) in zip(sparse, dense):
+        finite = [bool(torch.isfinite(x.poses).all() & torch.isfinite(x.points).all())
+                  for x in (s, d)]
+        assert finite[0] == finite[1]
+        if not finite[1]:      # a step the LM loop rejects, on both paths
+            continue
+        if kind == "coarse":
+            gaps[kind].append(check.pose_gap(s.poses, d.poses))
+        else:
+            centres = lie.inv_se3(d.poses)[:, :3, 3]
+            gaps[kind].append(_point_gap(s.points, d.points, a["points"], s.point_valid, centres))
+    coarse, fine = (torch.cat(gaps[k]).double().median().item() for k in ("coarse", "fine"))
+    assert coarse <= 2.5e-5 and fine <= 2.1e-5, (coarse, fine)
+
+
+def test_sweep_step_allocates_no_dense_coupling_grid(refine_record):
+    """One LM iteration of the refine's fine sweep (200 frames, 8,192
+    landmarks) raises the card's peak memory by less than one dense
+    (8192, 200, 6, 3) float32 coupling tensor (118 MB)."""
+    from tpuvo_torch.ba import window
+    from tpuvo_torch.engine import vo
+
+    r, record = refine_record
+    s = record["sweeps"][1]
+    sv = s["solve"]
+    a = sv["iterations"][0]
+    prob = window.BAProblem(a["poses"], a["points"], r.seqs[0].uv, sv["obs_lm"],
+                            record["obs_valid"], sv["point_valid"], sv["fixed"])
+    plans = window.assembly_plans(prob)
+    K = vo._K(r.cfg, "cuda")
+    cfg = r.ba.replace(cull_bounds=False)
+    window.ba_step(prob, K, r.cfg.width, r.cfg.height, cfg, a["lam"], plans=plans)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    window.ba_step(prob, K, r.cfg.width, r.cfg.height, cfg, a["lam"], plans=plans)
+    torch.cuda.synchronize()
+    grid = prob.points.shape[0] * prob.poses.shape[0] * 18 * 4
+    assert grid == 117_964_800
+    assert torch.cuda.max_memory_allocated() - base < grid
+
+
+def test_sweep_replayed_equals_eager_on_card(refine_record, monkeypatch):
+    """The refine's first fine sweep again on the card: its LM iterations,
+    each one replay of the captured iteration (the refine captured it), give
+    the eager loop's poses, points, chi and record bit for bit."""
+    from tpuvo_torch.engine import ba_refine, vo
+    from tpuvo_torch.utils import graphs
+
+    r, record = refine_record
+    s = record["sweeps"][1]
+    state = r.tracked[0][0]
+    args = (s["poses_before"], s["points_before"], state.map_valid, r.seqs[0].uv,
+            record["obs_lm"], record["obs_valid"], vo._K(r.cfg, "cuda"), r.cfg,
+            r.ba.replace(cull_bounds=False))
+    c0, r0 = graphs.captures, graphs.replays
+    rec_g = {}
+    got = ba_refine._global_sweep(*args, record=rec_g)
+    torch.cuda.synchronize()
+    assert graphs.captures == c0 and graphs.replays - r0 == r.ba.iterations
+    with monkeypatch.context() as mp:
+        mp.setattr(graphs, "on_card", lambda _t: False)
+        rec_e = {}
+        ref = ba_refine._global_sweep(*args, record=rec_e)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    for a, b in zip(rec_g["iterations"], rec_e["iterations"]):
+        assert all(torch.equal(a[k], b[k]) for k in ("poses", "points", "lam", "chi"))
+    assert torch.equal(got[0], s["poses_after"]) and torch.equal(got[1], s["points_after"])

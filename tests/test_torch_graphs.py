@@ -625,3 +625,104 @@ def test_close_loops_replays_its_pgo(fake):
         assert graphs.captures - c0 == (2 if call == 0 else 0)
         assert graphs.replays - r0 == 60 + 20
     assert int(ref[1]) > 0
+
+
+def route_kernel_f(monkeypatch):
+    """Kernel F's calls routed as on the card: each ``prepare`` answers with
+    the plain version out of sight of the guard and counts a launch."""
+    from tpuvo_torch.ops.cuda import schur
+
+    monkeypatch.setattr(schur, "on_card", lambda _t: True)
+
+    def quiet(reference):
+        def prepare(*args):
+            with _disable_current_modes():
+                res = reference(*args)
+
+            def launch():
+                schur.launches += 1
+            return launch, res
+        return prepare
+
+    monkeypatch.setattr(schur, "prepare_reduced_system", quiet(schur.reduced_system_reference))
+    monkeypatch.setattr(schur, "prepare_backsubstitute", quiet(schur.backsubstitute_reference))
+    monkeypatch.setattr(schur, "launches", 0)
+
+
+def sweep_problem(seed=3, W=6, L=600):
+    """A noisy BA window whose shape takes the pair blocks (64 observations
+    a frame over 600 landmarks: 8·64 <= 600 without compaction), poses 0
+    and 1 fixed."""
+    from tpuvo_torch.ba.window import BAProblem
+
+    rng = np.random.default_rng(seed)
+    world = synthetic.make_world(seed, n_landmarks=L, xy_extent=8.0)
+    gt = synthetic.make_planar_trajectory(W, seed=seed)
+    seq = synthetic.render_sequence(world, gt, CFG, pixel_noise=0.3, seed=seed)
+    poses = np.stack([np.linalg.inv(synthetic.camera_pose_from_gt(g, CFG)) for g in gt])
+    xi = torch.as_tensor(0.02 * rng.standard_normal((W, 6)).astype(np.float32))
+    xi[:2] = 0.0
+    points = world.xyz + 0.03 * rng.standard_normal(world.xyz.shape)
+    return BAProblem(tlie.se3_exp(xi) @ torch.as_tensor(poses.astype(np.float32)),
+                     torch.as_tensor(points.astype(np.float32)), torch.as_tensor(seq.uv),
+                     torch.as_tensor(np.where(seq.valid, seq.id_real, 0).astype(np.int64)),
+                     torch.as_tensor(seq.valid), torch.ones(L, dtype=torch.bool),
+                     torch.arange(W) < 2)
+
+
+def test_graphed_sparse_ba_solve_equals_eager(fake, monkeypatch):
+    """A ``ba_solve`` that takes the pair blocks, on the (fake) graph: the
+    eager poses, points, stats and every recorded iteration bit for bit,
+    its LM iteration captured under the guard; one capture per config,
+    one replay an iteration, a second problem of the same shapes replaying
+    the same capture, and kernel F's two launches credited to each replay.
+    A solve that takes the dense product replays its own capture, bit-equal
+    to its eager run; inside another step's graph (the SLAM step's local
+    BA) a solve runs op by op and captures nothing of its own."""
+    from tpuvo_torch.ba import window
+    from tpuvo_torch.config import BAConfig
+    from tpuvo_torch.ops.cuda import schur
+
+    route_kernel_f(monkeypatch)
+    K = torch.as_tensor(CFG.K(), dtype=torch.float32)
+    problems = [sweep_problem(3), sweep_problem(4)]
+    assert window.sparse_schur(problems[0].obs_lm.shape[1], 600)
+    cfgs = (BAConfig(iterations=6), BAConfig(iterations=6, cull_bounds=False, keep_outliers=True,
+                                              huber_threshold=1e8))
+    for cfg in cfgs:
+        for p in problems:
+            fake(False)
+            rec_e = {}
+            n0 = schur.launches
+            ref = window.ba_solve(p, K, 640, 480, cfg, compact=False, record=rec_e)
+            eager_launches = schur.launches - n0
+            fake(True)
+            rec_g = {}
+            n0 = schur.launches
+            got = window.ba_solve(p, K, 640, 480, cfg, compact=False, record=rec_g)
+            assert_same(got, ref, str(cfg))
+            assert_same(rec_g, rec_e, str(cfg))
+            assert schur.launches - n0 == eager_launches == 2 * cfg.iterations
+            its = rec_g["iterations"]
+            assert len(its) == cfg.iterations + 1
+            ptrs = [t.untyped_storage().data_ptr() for e in its for t in e.values()]
+            assert len(set(ptrs)) == len(ptrs)
+    assert graphs.captures == 2 and graphs.replays == 4 * 6
+    dense = problems[0]._replace(points=problems[0].points[:300],
+                                 point_valid=problems[0].point_valid[:300],
+                                 obs_lm=problems[0].obs_lm.clamp(max=299))
+    assert not window.sparse_schur(dense.obs_lm.shape[1], 300)
+    fake(False)
+    ref = window.ba_solve(dense, K, 640, 480, cfgs[0], compact=False)
+    fake(True)
+    assert_same(window.ba_solve(dense, K, 640, 480, cfgs[0], compact=False), ref, "dense")
+    assert graphs.captures == 3 and graphs.replays == 4 * 6 + 6
+    out = torch.zeros_like(dense.poses)
+
+    def body(b):
+        b["poses"].copy_(window.ba_solve(dense, K, 640, 480, cfgs[0], compact=False)[0].poses)
+
+    outer = graphs.Program("outer", dict(poses=out), (out,))
+    outer.replay(None, body)
+    assert graphs.captures == 4 and graphs.replays == 4 * 6 + 7
+    assert torch.equal(out, ref[0].poses)

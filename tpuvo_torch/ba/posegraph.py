@@ -194,61 +194,6 @@ def _lm_iteration(graph: PoseGraph, plans, lam, chi_prev, kernel_threshold: floa
             torch.where(accept, chi_new, chi_prev), n_inl)
 
 
-def _eager_iterations(graph: PoseGraph, plans, state, iterations: int, kernel_threshold: float,
-                      damping: float, reduce=None, its=None):
-    """``iterations`` LM iterations op by op from ``state`` (poses, lam,
-    chi, inlier count); ``its`` receives the state before each."""
-    for _ in range(iterations):
-        poses, lam, chi, _ = state
-        if its is not None:
-            its.append(dict(poses=poses, lam=lam, chi=chi))
-        state = _lm_iteration(graph._replace(poses=poses), plans, lam, chi, kernel_threshold,
-                              damping, reduce)
-    return state
-
-
-def _step_body(kernel_threshold: float, damping: float):
-    """The captured LM iteration: the carried poses, lam, chi and inlier
-    count read from the Program's buffers and written back."""
-    def body(b):
-        g = b["graph"]
-        for dst, src in zip((g.poses, b["lam"], b["chi"], b["n_inl"]),
-                            _lm_iteration(g, b["plans"], b["lam"], b["chi"], kernel_threshold,
-                                          damping)):
-            dst.copy_(src)
-
-    return body
-
-
-def _replayed_iterations(graph: PoseGraph, plans, state, iterations: int,
-                         kernel_threshold: float, damping: float, its=None):
-    """``_eager_iterations`` as replays of one captured LM iteration: a
-    ``utils/graphs`` Program per graph signature, threshold and damping
-    floor (host floats the graph bakes in).  The solve's graph, plans and
-    state are copied into its buffers, which the next solve of the key
-    overwrites, so ``its`` receives copies."""
-    def make():
-        b = dict(graph=PoseGraph(*(t.clone() for t in graph)),
-                 plans=tuple(type(p)(*(t.clone() for t in p)) for p in plans),
-                 **{k: t.clone() for k, t in zip(("lam", "chi", "n_inl"), state[1:])})
-        return graphs.Program("pgo_step", b, (b["graph"].poses, b["lam"], b["chi"], b["n_inl"]))
-
-    prog = graphs.cached(("pgo_step", graphs.signature(graph), kernel_threshold, damping), make)
-    b = prog.buffers
-    carried = (b["graph"].poses, b["lam"], b["chi"], b["n_inl"])
-    for dst, src in zip((*b["graph"], *(t for p in b["plans"] for t in p), *carried[1:]),
-                        (*graph, *(t for p in plans for t in p), *state[1:])):
-        dst.copy_(src)
-    body = _step_body(kernel_threshold, damping)
-    for k in range(iterations):
-        if its is not None:
-            if k:
-                state = tuple(t.clone() for t in carried)
-            its.append(dict(poses=state[0], lam=state[1], chi=state[2]))
-        prog.replay(None, body)
-    return tuple(t.clone() for t in carried)
-
-
 def pgo_solve(graph: PoseGraph, iterations: int = 20, kernel_threshold: float = 1.0,
               damping: float = 1e-6, damping_init: float = 1e-3, reduce=None, record=None):
     """Adaptive-LM pose-graph solve: one trial step per iteration; a
@@ -257,8 +202,8 @@ def pgo_solve(graph: PoseGraph, iterations: int = 20, kernel_threshold: float = 
     carried value goes through ``torch.where`` (no host sync).  Returns
     (optimized PoseGraph, PGOStats).
 
-    On the card (``graphs.on_card``) an LM iteration is one replay of its
-    captured graph (``_replayed_iterations``), which runs the kernels of
+    On the card an LM iteration is one replay of its captured graph
+    (``graphs.iterate``, the Program "pgo_step"), which runs the kernels of
     the eager iteration in their order: the same bits.  The plans, the
     first chi and the copies in and out stay eager, once a solve.
 
@@ -280,14 +225,19 @@ def pgo_solve(graph: PoseGraph, iterations: int = 20, kernel_threshold: float = 
     n_inl = torch.zeros((), dtype=torch.int32, device=dev)
     plans = assembly_plans(graph)  # the edges are the solve's: sorted once
     its = record.setdefault("iterations", []) if record is not None else None
-    state = (graph.poses, lam, chi_prev, n_inl)
-    if reduce is None and graphs.on_card(graph.poses) and iterations > 0:
-        state = _replayed_iterations(graph, plans, state, iterations, float(kernel_threshold),
-                                     float(damping), its)
-    else:
-        state = _eager_iterations(graph, plans, state, iterations, kernel_threshold, damping,
-                                  reduce, its)
-    poses, lam, chi_prev, n_inl = state
+
+    def step(inputs, state):
+        g, p = inputs
+        return _lm_iteration(g._replace(poses=state[0]), p, state[1], state[2],
+                             kernel_threshold, damping, reduce)
+
+    def before(state):
+        its.append(dict(poses=state[0], lam=state[1], chi=state[2]))
+
+    poses, lam, chi_prev, n_inl = graphs.iterate(
+        "pgo_step", (float(kernel_threshold), float(damping)), (graph, plans),
+        (graph.poses, lam, chi_prev, n_inl), step, iterations,
+        before=before if its is not None else None, eager=reduce is not None)
     if its is not None:
         its.append(dict(poses=poses, lam=lam, chi=chi_prev))
     return graph._replace(poses=poses), PGOStats(

@@ -14,10 +14,16 @@ Formulation — classic visual BA:
 Every per-observation quantity is one batched pass over (W, N); the
 per-landmark blocks are assembled by fixed-order segmented sums
 (``ba/assembly``, the JAX twin's ``segment_sum``; the order is planned once
-per solve, so two runs give the same bits on the card) and S is one large
-matrix product over the landmark axis.
+per solve, so two runs give the same bits on the card).  S comes one of two
+ways, chosen by the solve's shape (``sparse_schur``): one large matrix
+product over a dense (L, W) grid of coupling blocks, as in JAX, or, where
+at most an eighth of that grid can be nonzero (the global sweep), from the
+nonzero (landmark, frame) blocks alone (``pair_plan``; kernel F,
+``ops/cuda/schur``, on the card).
 The Levenberg-Marquardt loop carries every value through ``torch.where``
-on a tensor ``accept``, so a solve makes no host round-trip on the card.
+on a tensor ``accept``, so a solve makes no host round-trip on the card;
+there, outside the SLAM step's own graph, a solve replays one captured LM
+iteration (``utils/graphs.iterate``).
 """
 
 from __future__ import annotations
@@ -32,7 +38,9 @@ from tpuvo_torch.config import BAConfig, EngineConfig
 from tpuvo_torch.engine.state import tuple_from_numpy, tuple_to_numpy
 from tpuvo_torch.ops import lie
 from tpuvo_torch.ops.camera import project_points_with_cam
+from tpuvo_torch.ops.cuda import schur
 from tpuvo_torch.ops.linalg_small import cholesky_solve_nan, inv3
+from tpuvo_torch.utils import graphs
 
 
 class BAProblem(NamedTuple):
@@ -126,25 +134,123 @@ def _gather_obs(problem: BAProblem):
     return lm, problem.points[lm], problem.obs_valid & problem.point_valid[lm]
 
 
+class PairPlan(NamedTuple):
+    """The nonzero coupling blocks of a solve's topology: a slot for each
+    (landmark, frame) pair that a valid observation joins, P = W·N slots in
+    all (a fixed shape: no host read), the pairs first in ascending
+    (landmark, frame), then inert slots.
+
+    sums:      the observations' sums into their pair's slot
+    lm:        (P,) int64 each slot's landmark (L for an inert slot)
+    frame:     (P,) int64 each slot's frame (W for an inert slot)
+    lm_bounds: (L + 1,) int64: landmark l's pairs are slots lm_bounds[l] to
+               lm_bounds[l + 1], in ascending frame
+    by_frame:  the pairs by frame (stable, so each frame's in ascending
+               landmark), inert slots left out"""
+
+    sums: assembly.SumPlan
+    lm: torch.Tensor
+    frame: torch.Tensor
+    lm_bounds: torch.Tensor
+    by_frame: assembly.SumPlan
+
+    sparse = True  # its LM iterations carry the span ``tpuvo.ba.schur.sparse``
+
+    def coupling(self, Wb, L: int, W: int):
+        """The observations' (W·N,6,3) blocks ``Wb`` summed into their pair
+        slots: the (W·N,6,3) pair blocks."""
+        return assembly.segment_sum(Wb, self.sums)
+
+    def reduced(self, Hpp, bp, Hll, bl, Wp, damping):
+        return schur_parts_sparse(Hpp, bp, Hll, bl, Wp, self, damping)
+
+    def landmark_steps(self, Hll_inv, bl, Wp, dx_p):
+        return schur.backsubstitute(Wp, Hll_inv, bl, dx_p, self.frame, self.lm_bounds)
+
+
+class CouplingGrid(assembly.SumPlan):
+    """The dense (L, W) grid of coupling blocks: the observations' sums by
+    landmark·W + frame (a ``SumPlan``); S is one product over the grid
+    (``schur_parts``), as in JAX."""
+
+    __slots__ = ()
+    sparse = False
+
+    def coupling(self, Wb, L: int, W: int):
+        """The observations' (W·N,6,3) blocks ``Wb`` summed into the
+        (L,W,6,3) grid."""
+        return assembly.segment_sum(Wb, self).reshape(L, W, 6, 3)
+
+    def reduced(self, Hpp, bp, Hll, bl, Wfl, damping):
+        return schur_parts(Hpp, bp, Hll, bl, Wfl, damping)
+
+    def landmark_steps(self, Hll_inv, bl, Wfl, dx_p):
+        return backsubstitute(Hll_inv, bl, Wfl, dx_p)
+
+
+def _layout(plan):
+    """The Schur layout a landmark-and-frame plan carries: a ``PairPlan``,
+    or a ``CouplingGrid`` (which a plain ``SumPlan`` of landmark·W + frame
+    is)."""
+    return plan if isinstance(plan, (PairPlan, CouplingGrid)) else CouplingGrid(*plan)
+
+
+def sparse_schur(N: int, La: int) -> bool:
+    """Whether a solve of N observations a frame over La landmarks builds S
+    from its nonzero (landmark, frame) blocks: at most W·N of the La·W are
+    nonzero, and below an eighth (the global sweep: 4.9%) their own products
+    beat the dense one (kernel F's and the dense path's times on the card,
+    PERF.md §6).  The local BA (84%) keeps the dense product."""
+    return 8 * N <= La
+
+
+def pair_plan(lm, valid, W: int, L: int) -> PairPlan:
+    """The ``PairPlan`` of (W·N,) landmark ids ``lm`` (frame-major) and their
+    ``valid`` flags; an invalid observation joins no pair (its blocks are
+    zero)."""
+    dev = lm.device
+    P = lm.numel()
+    fidx = torch.arange(W, device=dev).repeat_interleave(P // W)
+    key = torch.where(valid, lm * W + fidx, L * W)     # invalid: after every pair
+    order = torch.argsort(key, stable=True)
+    sk = key[order]
+    first = torch.ones_like(sk, dtype=torch.bool)
+    first[1:] = sk[1:] != sk[:-1]
+    slot = torch.cumsum(first, 0) - 1                  # each sorted observation's pair
+    sums = assembly.SumPlan(order, torch.searchsorted(slot, torch.arange(P + 1, device=dev)))
+    pk = torch.full((P,), L * W, dtype=torch.int64, device=dev).scatter_(0, slot, sk)
+    pair_lm = pk // W
+    pair_f = torch.where(pair_lm < L, pk % W, W)
+    lm_bounds = torch.searchsorted(pair_lm, torch.arange(L + 1, device=dev))
+    return PairPlan(sums, pair_lm, pair_f, lm_bounds, assembly.plan(pair_f, W))
+
+
 def assembly_plans(problem: BAProblem):
     """The summation order of ``linearize_ba``'s landmark sums for this
     problem's topology (its observations' landmark ids): (by landmark, by
-    landmark and frame).  Planned once per solve."""
+    landmark and frame), the latter a ``PairPlan`` where ``sparse_schur``
+    holds for the problem's shape, else a ``CouplingGrid``: it carries the
+    solve's Schur reduction (``coupling``, ``reduced``,
+    ``landmark_steps``).  Planned once per solve."""
     W, N = problem.obs_lm.shape
     L = problem.points.shape[0]
-    lm = _gather_obs(problem)[0].reshape(-1)
+    lm, _, valid = _gather_obs(problem)
+    lm = lm.reshape(-1)
     by_lm = assembly.plan(lm, L)
+    if sparse_schur(N, L):
+        return by_lm, pair_plan(lm, valid.reshape(-1), W, L)
     fidx = torch.arange(W, device=lm.device)[:, None].expand(W, N).reshape(-1)
     # the stable sort by landmark keeps each landmark's observations in
     # (frame, slot) order, so it sorts landmark * W + frame as well
-    return by_lm, assembly.plan(lm * W + fidx, L * W, order=by_lm.order)
+    return by_lm, CouplingGrid(*assembly.plan(lm * W + fidx, L * W, order=by_lm.order))
 
 
 def linearize_ba(problem: BAProblem, K, width, height, cfg: BAConfig, plans):
     """Assemble all Schur ingredients in batched passes.
 
     Returns (Hpp (W,6,6), bp (W,6), Hll (L,3,3), bl (L,3),
-    Wfl (L,W,6,3) coupling blocks, stats).  ``cfg.assembly`` "segsum" and
+    Wfl coupling blocks, stats): Wfl (L,W,6,3), or with a ``PairPlan`` one
+    block a pair slot (W·N,6,3).  ``cfg.assembly`` "segsum" and
     "onehot" name two TPU assemblies of the same sums; both are the one
     fixed-order segmented sum here (JAX's own tests hold the two equal).
     ``plans``: ``assembly_plans(problem)``, made once by the solve."""
@@ -166,7 +272,7 @@ def linearize_ba(problem: BAProblem, K, width, height, cfg: BAConfig, plans):
     by_lm, by_lm_frame = plans
     Hll = assembly.segment_sum(HB.reshape(-1, 3, 3), by_lm)
     bl = assembly.segment_sum(blB.reshape(-1, 3), by_lm)
-    Wfl = assembly.segment_sum(Wb.reshape(-1, 6, 3), by_lm_frame).reshape(L, W, 6, 3)
+    Wfl = _layout(by_lm_frame).coupling(Wb.reshape(-1, 6, 3), L, W)
 
     stats = BAStats(
         chi=torch.sum(chi * (w > 0) * torch.clamp(w, max=1.0)),
@@ -203,6 +309,17 @@ def schur_parts(Hpp, bp, Hll, bl, Wfl, damping):
     S = S + torch.einsum("fij,fg->figj", Hpp, eyeW)
     bp_red = bp - torch.einsum("lfik,lk->fi", WHinv, bl)
     return S.reshape(W * 6, W * 6), bp_red.reshape(W * 6), Hll_inv
+
+
+def schur_parts_sparse(Hpp, bp, Hll, bl, Wp, pairs: PairPlan, damping):
+    """``schur_parts`` from the pair blocks ``Wp`` (W·N,6,3) of ``pairs``:
+    each entry of S and b sums its landmarks' terms in ascending order
+    (kernel F on the card)."""
+    Hll_inv = invert_hll(Hll, damping)
+    S, b_red = schur.reduced_system(Wp, Hll_inv, bl, Hpp.contiguous(), bp.contiguous(),
+                                    pairs.lm, pairs.frame, pairs.lm_bounds,
+                                    pairs.by_frame.order, pairs.by_frame.bounds)
+    return S, b_red, Hll_inv
 
 
 def finalize_reduced(S, b_red, fixed, damping):
@@ -268,14 +385,15 @@ def ba_step(problem: BAProblem, K, width, height, cfg: BAConfig, damping=None, r
     the solve, so every rank takes the same pose step."""
     damping = cfg.damping if damping is None else damping
     Hpp, bp, Hll, bl, Wfl, stats = linearize_ba(problem, K, width, height, cfg, plans)
-    S, b_red, Hll_inv = schur_parts(Hpp, bp, Hll, bl, Wfl, damping)
+    layout = _layout(plans[1])
+    S, b_red, Hll_inv = layout.reduced(Hpp, bp, Hll, bl, Wfl, damping)
     if reduce is not None:
         S, b_red, stats = _reduce_fused(S, b_red, stats, reduce)
     S, b_red = finalize_reduced(S, b_red, problem.fixed, damping)
     # a non-PD S gives a NaN step, which the LM loop rejects (see
     # cholesky_solve_nan)
     dx_p = cholesky_solve_nan(S, -b_red).reshape(-1, 6)
-    dx_l = backsubstitute(Hll_inv, bl, Wfl, dx_p)
+    dx_l = layout.landmark_steps(Hll_inv, bl, Wfl, dx_p)
 
     new_poses = lie.se3_exp(dx_p) @ problem.poses
     new_poses = torch.where(problem.fixed[:, None, None], problem.poses, new_poses)
@@ -316,6 +434,24 @@ def _compact_active(obs_lm, obs_valid, L: int, La: int):
     return new_flat.reshape(obs_lm.shape), active_old
 
 
+def _lm_iteration(prob: BAProblem, plans, lam, chi_prev, stats, K, width, height,
+                  cfg: BAConfig):
+    """One adaptive LM iteration from ``prob`` at damping ``lam``: a trial
+    ``ba_step``, kept where the truncated objective stays finite and does
+    not grow.  Returns the carried (poses, points, lam, chi, stats)."""
+    prob_new, stats_new = ba_step(prob, K, width, height, cfg, lam, plans=plans)
+    chi_new = eval_robust_chi(prob_new, K, width, height, cfg)
+    finite = (torch.isfinite(chi_new) & torch.isfinite(prob_new.poses).all()
+              & torch.isfinite(prob_new.points).all())
+    accept = finite & (chi_new <= chi_prev)
+    return (torch.where(accept, prob_new.poses, prob.poses),
+            torch.where(accept, prob_new.points, prob.points),
+            torch.where(accept, torch.clamp(lam * 0.5, min=cfg.damping),
+                        torch.clamp(lam * 4.0, max=1e8)),
+            torch.where(accept, chi_new, chi_prev),
+            BAStats(*(torch.where(accept, a, b) for a, b in zip(stats_new, stats))))
+
+
 def ba_solve(problem: BAProblem, K, width, height, cfg: BAConfig, compact: bool = True,
              record=None):
     """Run cfg.iterations BA steps.
@@ -338,8 +474,9 @@ def ba_solve(problem: BAProblem, K, width, height, cfg: BAConfig, compact: bool 
     adaptive LM only."""
     Wf, N = problem.obs_lm.shape
     L = problem.points.shape[0]
-    # at full width the global sweep has W·N = 200·128 > L = 8192: no
-    # compaction, and Wfl / WHinv are (L, W, 6, 3) fp32, ~118 MB each
+    # at full width the global sweep has W·N = 200·400 > L = 8192: no
+    # compaction; at most 4.9% of its (L, W) coupling blocks are nonzero,
+    # so it takes the pair blocks (sparse_schur), not a 118 MB dense Wfl
     La = min(L, Wf * N + 1)
     if cfg.compact_cap:
         La = min(La, cfg.compact_cap)
@@ -369,21 +506,22 @@ def ba_solve(problem: BAProblem, K, width, height, cfg: BAConfig, compact: bool 
             its = []
             record.update(obs_lm=prob.obs_lm, point_valid=prob.point_valid, fixed=prob.fixed,
                           slots=active_old if use_compact else None, iterations=its)
-        for _ in range(cfg.iterations):
-            if its is not None:
-                its.append(dict(poses=prob.poses, points=prob.points, lam=lam, chi=chi_prev))
-            prob_new, stats_new = ba_step(prob, K, width, height, cfg, lam, plans=plans)
-            chi_new = eval_robust_chi(prob_new, K, width, height, cfg)
-            finite = (torch.isfinite(chi_new) & torch.isfinite(prob_new.poses).all()
-                      & torch.isfinite(prob_new.points).all())
-            accept = finite & (chi_new <= chi_prev)
-            prob = prob._replace(
-                poses=torch.where(accept, prob_new.poses, prob.poses),
-                points=torch.where(accept, prob_new.points, prob.points))
-            stats = BAStats(*(torch.where(accept, a, b) for a, b in zip(stats_new, stats)))
-            lam = torch.where(accept, torch.clamp(lam * 0.5, min=cfg.damping),
-                              torch.clamp(lam * 4.0, max=1e8))
-            chi_prev = torch.where(accept, chi_new, chi_prev)
+        K = torch.as_tensor(K, device=dev)
+
+        def step(inputs, state):
+            p, pl, k = inputs
+            return _lm_iteration(p._replace(poses=state[0], points=state[1]), pl, state[2],
+                                 state[3], state[4], k, width, height, cfg)
+
+        def before(state):
+            its.append(dict(poses=state[0], points=state[1], lam=state[2], chi=state[3]))
+
+        poses, points, lam, chi_prev, stats = graphs.iterate(
+            "ba_step", (width, height, cfg), (prob, plans, K),
+            (prob.poses, prob.points, lam, chi_prev, stats), step, cfg.iterations,
+            before=before if its is not None else None,
+            label="ba.schur.sparse" if plans[1].sparse else None)
+        prob = prob._replace(poses=poses, points=points)
         if its is not None:
             its.append(dict(poses=prob.poses, points=prob.points, lam=lam, chi=chi_prev))
     else:

@@ -44,6 +44,11 @@ _SIGNATURES = {
     "tpuvo_svd3": [_P] * 5 + [_I, _P],
     # values, order, bounds, out, n (entries), n_targets, cols, stream
     "tpuvo_segsum": [_P] * 4 + [_L, _L, _I, _P],
+    # Wp, Hinv, bl, Hpp, bp, pair_lm, pair_f, lm_bounds, frame_order,
+    # frame_bounds, S, b, W, n_max (a frame's pairs at most), stream
+    "tpuvo_schur_reduce": [_P] * 12 + [_I, _I, _P],
+    # Wp, Hinv, bl, dx, pair_f, lm_bounds, out, La, stream
+    "tpuvo_schur_backsub": [_P] * 7 + [_L, _P],
 }
 
 _lib = None

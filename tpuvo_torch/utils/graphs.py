@@ -35,6 +35,10 @@ per input shape would grow it with every new sequence length.  When a capture ta
 one first copies its state out), which frees their buffers and pools; the
 next call of a dropped key captures it again, and gives the same bits.
 
+An iterative solve (the pose graph's and the BA's LM loops) runs through
+``iterate``: its iteration captured once per key and replayed once per
+iteration, or op by op on the CPU and inside another step's graph.
+
 Counters: ``captures``, ``replays`` and ``evictions``, as
 ``picp_kernel.launches`` counts kernel launches.  A replay runs none of the
 kernels' Python wrappers, so a graph credits the launches it captured to
@@ -51,21 +55,24 @@ made mid-run).
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
-from tpuvo_torch.ops.cuda import match_kernel, picp_kernel, segsum, smalleig
+from tpuvo_torch.ops.cuda import match_kernel, picp_kernel, schur, segsum, smalleig
 from tpuvo_torch.utils.profiling import span
 
 WARMUP = 3            # eager calls of a body before its capture
 # modules whose ``launches`` a replay credits
-COUNTED = (picp_kernel, match_kernel, smalleig, segsum)
+COUNTED = (picp_kernel, match_kernel, smalleig, segsum, schur)
 CACHE_BYTES = 4 << 30  # device bytes the cached entries may hold (5% of an 80 GB card)
 
 captures = 0          # graphs captured in this process
 replays = 0           # graph replays in this process
 evictions = 0         # entries dropped from the cache in this process
 warmup_launches = 0   # kernel launches made by warm-up calls (not in COUNTED)
+_in_step = 0          # depth of Program steps being warmed up, captured or replayed
 
 _cache: dict = {}     # key -> Program, least recently used first
 _side_streams: dict = {}  # device -> the stream every capture's warm-ups run on
@@ -79,6 +86,12 @@ class GraphCaptureError(RuntimeError):
 def on_card(t) -> bool:
     """Whether a step whose state lies on ``t``'s device runs as a graph."""
     return t.is_cuda
+
+
+def in_graph() -> bool:
+    """Whether a Program's step is being warmed up, captured or replayed:
+    what runs now is part of that step's graph (the SLAM step's local BA)."""
+    return _in_step > 0
 
 
 def signature(tree):
@@ -296,7 +309,7 @@ class Program:
         return False
 
     def _capture(self, branch, body):
-        global captures, warmup_launches
+        global captures, warmup_launches, _in_step
         saved = [t.clone() for t in self.carried]
 
         def restore():
@@ -320,6 +333,7 @@ class Program:
             return out
 
         start = _counts()
+        _in_step += 1
         try:
             graph = CUDAGraph(captured, lambda: (body(self.buffers), restore()))
         except GraphCaptureError:
@@ -327,6 +341,7 @@ class Program:
         except RuntimeError as e:  # refused by CUDA when the capture ended
             raise GraphCaptureError(f"capturing {self.name} [{branch}]: {e}") from e
         finally:
+            _in_step -= 1
             warmup_launches += sum(_counts()) - sum(start) - sum(launches)
             for m, n in zip(COUNTED, start):
                 m.launches = n
@@ -341,16 +356,77 @@ class Program:
     def replay(self, branch, body):
         """Replay ``branch`` (capturing ``body`` first if it is new); returns
         the graph's outputs, which the next replay overwrites."""
-        global replays
+        global replays, _in_step
         entry = self.graphs.get(branch)
         if entry is None:
             with span("capture." + self._label(branch)):
                 entry = self.graphs[branch] = self._capture(branch, body)
             _evict(keep=self)
         graph, launches, name = entry
-        with span(name):
-            graph.replay()
+        _in_step += 1
+        try:
+            with span(name):
+                graph.replay()
+        finally:
+            _in_step -= 1
         for m, n in zip(COUNTED, launches):
             m.launches += n
         replays += 1
         return graph.outputs
+
+
+# ------------------------------------------------------------ iterations --
+def _clone(tree):
+    """A pytree of tensors (tuples, NamedTuples) with every tensor cloned."""
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    items = map(_clone, tree)
+    return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    return [t for x in tree for t in _leaves(x)]
+
+
+def iterate(name: str, static, inputs, state, step, n: int, before=None, label=None,
+            eager: bool = False):
+    """``state = step(inputs, state)`` ``n`` times (an LM solve's
+    iterations).  On the card, outside another step's graph (``in_graph``)
+    and without ``eager``, as ``n`` replays of one captured call, which runs
+    the kernels of the eager call in their order: the same bits; else op by
+    op.  ``inputs`` and ``state`` are pytrees of tensors (tuples,
+    NamedTuples); ``static`` the host values ``step`` bakes in, which with
+    their signature key the Program.  Its buffers receive copies of
+    ``inputs`` and ``state`` each call, and the next call of the key
+    overwrites them, so the state returned is a copy, as is each state after
+    the first handed to ``before(state)``, called before every iteration.
+    ``label``: a span around each iteration (a captured call holds none)."""
+    around = (lambda: span(label)) if label else contextlib.nullcontext
+    if eager or n == 0 or in_graph() or not on_card(_leaves(state)[0]):
+        for _ in range(n):
+            if before is not None:
+                before(state)
+            with around():
+                state = step(inputs, state)
+        return state
+
+    def make():
+        b = dict(inputs=_clone(inputs), state=_clone(state))
+        return Program(name, b, _leaves(b["state"]))
+
+    def body(b):
+        for dst, src in zip(_leaves(b["state"]), _leaves(step(b["inputs"], b["state"]))):
+            dst.copy_(src)
+
+    prog = cached((name, signature((inputs, state)), static), make)
+    b = prog.buffers
+    for dst, src in zip(_leaves((b["inputs"], b["state"])), _leaves((inputs, state))):
+        dst.copy_(src)
+    for k in range(n):
+        if before is not None:
+            before(_clone(b["state"]) if k else state)
+        with around():
+            prog.replay(None, body)
+    return _clone(b["state"])
